@@ -1,0 +1,145 @@
+"""The temporal video UNet (mirror of ``upscale_a_video_tpu/models/unet_video.py``).
+
+Input = concat(noisy latents 4ch, noised LR frames 3ch); the noise-level class
+embedding is added to the timestep embedding; a TemporalModule3D follows
+every down/mid/up block; upsample sizes are forced to the next skip's size.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..config import UNetVideoConfig
+from ..nn.blocks import GroupNorm, InflatedConv, TimestepEmbedding
+from ..nn.temporal import TemporalModule3D
+from ..nn.unet_blocks import (CrossAttnDownBlock3D, CrossAttnUpBlock3D, DownBlock3D,
+                              UNetMidBlock3DCrossAttn, UpBlock3D)
+from ..ops.embeddings import get_timestep_embedding
+
+
+class UNetVideoModel(nn.Module):
+    def __init__(self, config: UNetVideoConfig = UNetVideoConfig()):
+        super().__init__()
+        cfg = self.config = config
+        boc = cfg.block_out_channels
+        temb = boc[0] * 4
+        groups = min(32, cfg.norm_num_groups)
+        self.time_embedding = TimestepEmbedding(boc[0], temb)
+        self.class_embedding = (nn.Embedding(cfg.num_class_embeds, temb)
+                                if cfg.num_class_embeds is not None else None)
+        self.conv_in = InflatedConv(cfg.in_channels, boc[0], 3, padding=1)
+
+        n = len(cfg.down_block_types)
+        self.down_blocks = nn.ModuleList()
+        self.down_temp_blocks = nn.ModuleDict()
+        out_ch = boc[0]
+        for i, kind in enumerate(cfg.down_block_types):
+            in_ch, out_ch = out_ch, boc[i]
+            common = dict(in_channels=in_ch, out_channels=out_ch, temb_channels=temb,
+                          num_layers=cfg.layers_per_block, resnet_eps=cfg.norm_eps,
+                          resnet_groups=cfg.norm_num_groups, add_downsample=i != n - 1)
+            if kind == "CrossAttnDownBlock3D":
+                block = CrossAttnDownBlock3D(**common,
+                                             attn_num_head_channels=cfg.attention_head_dim,
+                                             cross_attention_dim=cfg.cross_attention_dim,
+                                             only_cross_attention=cfg.only_cross_attention[i])
+            elif kind == "DownBlock3D":
+                block = DownBlock3D(**common)
+            else:
+                raise ValueError(f"unknown down block {kind}")
+            self.down_blocks.append(block)
+            if i in cfg.down_temporal_idx:
+                self.down_temp_blocks[str(i)] = TemporalModule3D(out_ch, temb, groups)
+
+        self.mid_block = UNetMidBlock3DCrossAttn(
+            boc[-1], temb, resnet_eps=cfg.norm_eps, resnet_groups=cfg.norm_num_groups,
+            attn_num_head_channels=cfg.attention_head_dim,
+            cross_attention_dim=cfg.cross_attention_dim)
+        self.mid_temp_block = TemporalModule3D(boc[-1], temb, groups) if cfg.mid_temporal else None
+
+        rev = list(reversed(boc))
+        only_cross = list(reversed(cfg.only_cross_attention))
+        self.up_blocks = nn.ModuleList()
+        self.up_temp_blocks = nn.ModuleDict()
+        out_ch = rev[0]
+        for i, kind in enumerate(cfg.up_block_types):
+            prev, out_ch = out_ch, rev[i]
+            common = dict(in_channels=rev[min(i + 1, n - 1)], out_channels=out_ch,
+                          prev_output_channel=prev, temb_channels=temb,
+                          num_layers=cfg.layers_per_block + 1, resnet_eps=cfg.norm_eps,
+                          resnet_groups=cfg.norm_num_groups, add_upsample=i != n - 1)
+            if kind == "CrossAttnUpBlock3D":
+                block = CrossAttnUpBlock3D(**common, attn_num_head_channels=cfg.attention_head_dim,
+                                           cross_attention_dim=cfg.cross_attention_dim,
+                                           only_cross_attention=only_cross[i])
+            elif kind == "UpBlock3D":
+                block = UpBlock3D(**common)
+            else:
+                raise ValueError(f"unknown up block {kind}")
+            self.up_blocks.append(block)
+            if i in cfg.up_temporal_idx:
+                self.up_temp_blocks[str(i)] = TemporalModule3D(out_ch, temb, groups)
+
+        self.conv_norm_out = GroupNorm(cfg.norm_num_groups, boc[0], cfg.norm_eps)
+        self.conv_out = InflatedConv(boc[0], cfg.out_channels, 3, padding=1)
+
+    def forward(self, sample, timestep, low_res, encoder_hidden_states, class_labels,
+                cfg_dup: bool = False):
+        """sample (B, T, H, W, 4), low_res (B, T, H, W, 3), encoder_hidden_states
+        (B', S, C_txt). With ``cfg_dup`` the caller passes sample/low_res at
+        batch n and the context at 2n as [uncond, cond]: the text-free prefix
+        runs once and is duplicated before the first text-consuming block
+        (exactly as the reference's ``cfg_dup``). Returns (B', T, H, W, 4)."""
+        cfg = self.config
+        dt = self.conv_in.weight.dtype
+        x = torch.cat([sample, low_res], dim=-1).to(dt)
+        b = x.shape[0]
+        if cfg_dup and encoder_hidden_states.shape[0] != 2 * b:
+            raise ValueError("cfg_dup expects the context at twice the sample batch")
+        tiled = not cfg_dup
+        dup = lambda v: torch.cat([v, v], dim=0)
+
+        ts = torch.as_tensor(timestep, device=x.device).reshape(-1).expand(b)
+        emb = self.time_embedding(
+            get_timestep_embedding(ts, cfg.block_out_channels[0], cfg.flip_sin_to_cos,
+                                   cfg.freq_shift).to(dt))
+        if self.class_embedding is not None:
+            labels = torch.as_tensor(class_labels, device=x.device).reshape(-1).expand(b)
+            emb = emb + self.class_embedding(labels.long())
+        ctx = encoder_hidden_states.to(dt)
+
+        x = self.conv_in(x)
+        res = (x,)
+        for i, block in enumerate(self.down_blocks):
+            if isinstance(block, CrossAttnDownBlock3D):
+                if not tiled:
+                    x, emb, res, tiled = dup(x), dup(emb), tuple(dup(r) for r in res), True
+                x, states = block(x, emb, ctx)
+            else:
+                x, states = block(x, emb)
+            res += states
+            if str(i) in self.down_temp_blocks:
+                x = self.down_temp_blocks[str(i)](x, emb)
+
+        if not tiled:
+            x, emb, res = dup(x), dup(emb), tuple(dup(r) for r in res)
+        x = self.mid_block(x, emb, ctx)
+        if self.mid_temp_block is not None:
+            x = self.mid_temp_block(x, emb)
+
+        n = len(self.up_blocks)
+        for i, block in enumerate(self.up_blocks):
+            k = len(block.resnets)
+            states, res = res[-k:], res[:-k]
+            size = tuple(res[-1].shape[2:4]) if i != n - 1 and res else None
+            if isinstance(block, CrossAttnUpBlock3D):
+                x = block(x, states, emb, ctx, size)
+            else:
+                x = block(x, states, emb, size)
+            if str(i) in self.up_temp_blocks:
+                x = self.up_temp_blocks[str(i)](x, emb)
+
+        x = F.silu(self.conv_norm_out(x))
+        return self.conv_out(x)

@@ -1,0 +1,246 @@
+"""Attention modules: text cross / spatial self attention, temporal attention
+with RoPE and the T5 bias, the per-block transformer, and the VAE's spatial
+attention block. Mirror of ``upscale_a_video_tpu/nn/attention.py``.
+
+``BasicTransformerBlock`` sends its text cross-attentions, its temporal
+attention and its feed-forward to the fused kernels where their gates hold
+(dispatch sites of the reference: ``:399-484``, ``:490-524``, ``:542-555``).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..ops import _cuda
+from ..ops.attention import attention
+from ..ops.cross_attention_block import cross_attention_block_fits, fused_cross_attention_block
+from ..ops.fused_feedforward import feedforward_fits, fused_feedforward, gelu_tanh
+from ..ops.relpos import relative_position_buckets
+from ..ops.rope import apply_rotary
+from ..ops.temporal_attention_block import (fused_temporal_attention_block,
+                                            temporal_attention_block_fits)
+from .blocks import GroupNorm, LayerNorm, ResnetBlock3DCNN
+
+
+def _split_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
+    b, s, hd = x.shape
+    return x.reshape(b, s, heads, hd // heads).transpose(1, 2)
+
+
+def _merge_heads(x: torch.Tensor) -> torch.Tensor:
+    b, h, s, d = x.shape
+    return x.transpose(1, 2).reshape(b, s, h * d)
+
+
+class CrossAttention(nn.Module):
+    """Multi-head attention, q from the tokens, k/v from the context (or the
+    tokens); no q/k/v bias (ref attention.py:44-289)."""
+
+    def __init__(self, query_dim: int, cross_attention_dim: Optional[int] = None,
+                 heads: int = 8, dim_head: int = 64):
+        super().__init__()
+        inner = heads * dim_head
+        self.heads, self.dim_head = heads, dim_head
+        kv_dim = cross_attention_dim or query_dim
+        self.to_q = nn.Linear(query_dim, inner, bias=False)
+        self.to_k = nn.Linear(kv_dim, inner, bias=False)
+        self.to_v = nn.Linear(kv_dim, inner, bias=False)
+        self.to_out = nn.ModuleList([nn.Linear(inner, query_dim)])
+
+    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None) -> torch.Tensor:
+        kv = x if context is None else context
+        q = _split_heads(self.to_q(x), self.heads)
+        k = _split_heads(self.to_k(kv), self.heads)
+        v = _split_heads(self.to_v(kv), self.heads)
+        out = attention(q, k, v, self.dim_head ** -0.5)
+        return self.to_out[0](_merge_heads(out))
+
+
+class RelativePositionBias(nn.Module):
+    def __init__(self, heads: int, num_buckets: int = 32, max_distance: int = 32):
+        super().__init__()
+        self.num_buckets, self.max_distance = num_buckets, max_distance
+        self.relative_attention_bias = nn.Embedding(num_buckets, heads)
+
+    def forward(self, t: int) -> torch.Tensor:
+        """(H, T, T) bias for T frames."""
+        buckets = relative_position_buckets(t, self.num_buckets, self.max_distance)
+        idx = torch.as_tensor(buckets.astype(np.int64), device=self.relative_attention_bias.weight.device)
+        return self.relative_attention_bias.weight[idx].permute(2, 0, 1)
+
+
+class TemporalAttention(nn.Module):
+    """Attention across the frames of each pixel (ref attention.py:626-733):
+    T5 bias, RoPE on the first 32 dims, q scaled before the rotation."""
+
+    def __init__(self, query_dim: int, heads: int = 8, dim_head: int = 64, rope_dim: int = 32):
+        super().__init__()
+        inner = heads * dim_head
+        self.heads, self.dim_head, self.rope_dim = heads, dim_head, rope_dim
+        self.to_q = nn.Linear(query_dim, inner, bias=False)
+        self.to_k = nn.Linear(query_dim, inner, bias=False)
+        self.to_v = nn.Linear(query_dim, inner, bias=False)
+        self.time_rel_pos_bias = RelativePositionBias(heads)
+        self.to_out = nn.ModuleList([nn.Linear(inner, query_dim)])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x: (B', T, C) → (B', T, C)."""
+        t = x.shape[1]
+        bias = self.time_rel_pos_bias(t)
+        q = _split_heads(self.to_q(x), self.heads) * (self.dim_head ** -0.5)
+        k = _split_heads(self.to_k(x), self.heads)
+        v = _split_heads(self.to_v(x), self.heads)
+        rot = min(self.rope_dim, self.dim_head)
+        q = apply_rotary(q, rot)
+        k = apply_rotary(k, rot)
+        out = attention(q, k, v, 1.0, bias=bias[None])
+        return self.to_out[0](_merge_heads(out))
+
+
+class GEGLU(nn.Module):
+    def __init__(self, dim: int, dim_out: int):
+        super().__init__()
+        self.proj = nn.Linear(dim, dim_out * 2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h, gate = self.proj(x).chunk(2, dim=-1)
+        return h * gelu_tanh(gate)
+
+
+class FeedForward(nn.Module):
+    """GEGLU MLP, mult 4; ``net.1`` is the reference's dropout."""
+
+    def __init__(self, dim: int, mult: int = 4):
+        super().__init__()
+        self.net = nn.ModuleList([GEGLU(dim, dim * mult), nn.Identity(), nn.Linear(dim * mult, dim)])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.net[2](self.net[0](x))
+
+
+class BasicTransformerBlock(nn.Module):
+    """attn1 (self or text cross) → attn2 (text cross) → temporal attention
+    → GEGLU FF, each with its residual (ref attention.py:414-564)."""
+
+    def __init__(self, dim: int, heads: int, dim_head: int,
+                 cross_attention_dim: Optional[int] = None, only_cross_attention: bool = False):
+        super().__init__()
+        self.dim, self.heads, self.dim_head = dim, heads, dim_head
+        self.only_cross_attention = only_cross_attention
+        self.norm1 = LayerNorm(dim, eps=1e-5)
+        self.attn1 = CrossAttention(dim, cross_attention_dim if only_cross_attention else None,
+                                    heads, dim_head)
+        if cross_attention_dim is not None:
+            self.norm2 = LayerNorm(dim, eps=1e-5)
+            self.attn2 = CrossAttention(dim, cross_attention_dim, heads, dim_head)
+        else:
+            self.norm2 = self.attn2 = None
+        self.norm_temporal = LayerNorm(dim, eps=1e-5)
+        self.attn_temporal = TemporalAttention(dim, heads, dim_head)
+        self.norm3 = LayerNorm(dim, eps=1e-5)
+        self.ff = FeedForward(dim)
+
+    def _cross(self, norm, attn, x, context, video_length):
+        """x + attn(norm(x), context); ``context`` is per clip (B, S, C)."""
+        if _cuda.route(x, cross_attention_block_fits(x, context.shape[1], self.heads,
+                                                     self.dim_head)):
+            return fused_cross_attention_block(
+                x, norm.weight, norm.bias, attn.to_q.weight, attn.to_k(context),
+                attn.to_v(context), attn.to_out[0].weight, attn.to_out[0].bias,
+                heads=self.heads, dim_head=self.dim_head, t_repeat=video_length,
+                eps=norm.eps, add_residual=True)
+        ctx = context.repeat_interleave(video_length, dim=0)
+        return attn(norm(x), ctx) + x
+
+    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor], video_length: int):
+        """x: (B·T, S, C) per-frame tokens; context: (B, S_txt, C_txt)."""
+        if self.only_cross_attention:
+            x = self._cross(self.norm1, self.attn1, x, context, video_length)
+        else:
+            x = self.attn1(self.norm1(x)) + x
+        if self.attn2 is not None:
+            x = self._cross(self.norm2, self.attn2, x, context, video_length)
+
+        at, nt = self.attn_temporal, self.norm_temporal
+        if _cuda.route(x, temporal_attention_block_fits(x, video_length, self.heads, at.rope_dim)):
+            x = fused_temporal_attention_block(
+                x, nt.weight, nt.bias, at.to_q.weight, at.to_k.weight, at.to_v.weight,
+                at.to_out[0].weight, at.to_out[0].bias, at.time_rel_pos_bias(video_length),
+                video_length=video_length, rot_dim=at.rope_dim, eps=nt.eps, add_residual=True)
+        else:
+            bt, s, c = x.shape
+            b = bt // video_length
+            xt = x.reshape(b, video_length, s, c).transpose(1, 2).reshape(b * s, video_length, c)
+            xt = at(nt(xt)) + xt
+            x = xt.reshape(b, s, video_length, c).transpose(1, 2).reshape(bt, s, c)
+
+        n3, ff = self.norm3, self.ff
+        if _cuda.route(x, feedforward_fits(x)):
+            return fused_feedforward(x, n3.weight, n3.bias, ff.net[0].proj.weight,
+                                     ff.net[0].proj.bias, ff.net[2].weight, ff.net[2].bias,
+                                     eps=n3.eps, add_residual=True)
+        return ff(n3(x)) + x
+
+
+class Transformer3DModel(nn.Module):
+    """Per-level transformer with the leading (3,1,1) temporal resblock
+    (ref attention.py:292-411). x: (B, T, H, W, C); context: (B, S, C_txt)."""
+
+    def __init__(self, heads: int, dim_head: int, in_channels: int, num_layers: int = 1,
+                 cross_attention_dim: Optional[int] = None, norm_num_groups: int = 32,
+                 only_cross_attention: bool = False):
+        super().__init__()
+        inner = heads * dim_head
+        g = min(32, norm_num_groups)
+        self.resblock_temporal = ResnetBlock3DCNN(in_channels, temb_channels=None, groups=g,
+                                                  groups_out=g, temporal_kernel=(3, 1, 1))
+        self.norm = GroupNorm(norm_num_groups, in_channels, eps=1e-6)
+        self.proj_in = nn.Linear(in_channels, inner)
+        self.transformer_blocks = nn.ModuleList([
+            BasicTransformerBlock(inner, heads, dim_head, cross_attention_dim,
+                                  only_cross_attention) for _ in range(num_layers)])
+        self.proj_out = nn.Linear(inner, in_channels)
+
+    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor]) -> torch.Tensor:
+        x = self.resblock_temporal(x)
+        b, t, hh, ww, c = x.shape
+        residual = x.reshape(b * t, hh * ww, c)
+        # per-frame GroupNorm: the statistics exclude T (ref attention.py:363,374)
+        tokens = self.proj_in(self.norm(x.reshape(b * t, hh, ww, c)).reshape(b * t, hh * ww, c))
+        for block in self.transformer_blocks:
+            tokens = block(tokens, context, video_length=t)
+        tokens = self.proj_out(tokens) + residual
+        return tokens.reshape(b, t, hh, ww, c)
+
+
+class SpatialAttentionBlock(nn.Module):
+    """Per-frame single-head self-attention of the VAE mid block (vendored
+    diffusers AttentionBlock). On an fp32 decode q/k/v go to the attention
+    as bf16 with an fp32 softmax, as the reference does (``:699-703``)."""
+
+    def __init__(self, channels: int, num_head_channels: Optional[int] = None,
+                 norm_num_groups: int = 32, eps: float = 1e-6):
+        super().__init__()
+        self.channels = channels
+        self.heads = channels // num_head_channels if num_head_channels else 1
+        self.group_norm = GroupNorm(norm_num_groups, channels, eps)
+        self.query = nn.Linear(channels, channels)
+        self.key = nn.Linear(channels, channels)
+        self.value = nn.Linear(channels, channels)
+        self.proj_attn = nn.Linear(channels, channels)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, t, hh, ww, c = x.shape
+        tokens = self.group_norm(x.reshape(b * t, hh, ww, c)).reshape(b * t, hh * ww, c)
+        q, k, v = (_split_heads(f(tokens), self.heads) for f in (self.query, self.key, self.value))
+        dt = q.dtype
+        if dt == torch.float32:
+            q, k, v = q.to(torch.bfloat16), k.to(torch.bfloat16), v.to(torch.bfloat16)
+        out = attention(q, k, v, 1.0 / float(np.sqrt(c / self.heads)))
+        out = self.proj_attn(_merge_heads(out).to(dt))
+        return out.reshape(b, t, hh, ww, c) + x

@@ -1,0 +1,175 @@
+"""Build, load and account for the port's hand-written CUDA kernels.
+
+All ``csrc/*.cu`` sources are compiled by ONE ``nvcc`` call into one shared
+library with a plain C interface (no PyTorch headers, so the build takes
+seconds), at first use, into ``upscale_a_video_tpu_torch/_build/``. The
+library's name carries a hash of the sources, so an unchanged tree never
+rebuilds. Entry points are bound with ``ctypes``; each returns
+``cudaGetLastError()`` and :func:`check` raises on anything but 0.
+
+Every wrapper adds one to its entry in :data:`LAUNCHES` when it launches its
+kernel, so a run can show which kernels the main path went through.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+from typing import Dict, Optional
+
+import torch
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+CSRC = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17", "-shared",
+              "-Xcompiler", "-fPIC", "-lineinfo"]
+
+KERNELS = ("temporal_attention_block", "fused_temporal_resblock", "cross_attention_block",
+           "fused_feedforward", "flash_attention")
+LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    "uav_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "uav_temporal_attention_block": [_P] * 12 + [_I] * 7 + [_F, _I, _P],
+    "uav_cross_attention_block": [_P] * 7 + [_I] * 6 + [_F, _I, _P],
+    "uav_fused_feedforward": [_P] * 8 + [_I, _I, _F, _I, _P],
+    "uav_gn_partials": [_P, _P, _I, _I, _I, _I, _P],
+    "uav_gn_finalize": [_P] * 5 + [_I] * 4 + [_F, _F, _P],
+    "uav_temporal_conv": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+}
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+_enabled = True
+
+
+def sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256()
+    for p in sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    return BUILD_DIR / f"libuav_kernels_{source_hash()}.so"
+
+
+def find_nvcc() -> str:
+    for cand in (os.environ.get("NVCC"), shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels build only on a machine with the "
+                       "CUDA toolkit")
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile every ``csrc/*.cu`` with one nvcc call unless this exact
+    source set is already built. Returns the library path."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cus = [str(p) for p in sorted(CSRC.glob("*.cu"))]
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [find_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []), "-o", tmp, *cus]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if verbose or proc.returncode:
+        print(proc.stdout + proc.stderr, flush=True)
+    if proc.returncode:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}")
+    os.replace(tmp, out)
+    return out
+
+
+def lib() -> ctypes.CDLL:
+    global _lib
+    with _lock:
+        if _lib is None:
+            handle = ctypes.CDLL(str(build()))
+            for name, args in _SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = args
+                fn.restype = ctypes.c_int
+            handle.uav_error_string.argtypes = [ctypes.c_int]
+            handle.uav_error_string.restype = ctypes.c_char_p
+            _lib = handle
+    return _lib
+
+
+def check(rc: int, name: str) -> None:
+    if rc != 0:
+        msg = lib().uav_error_string(rc).decode()
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: {msg} ({rc})")
+
+
+def count(name: str) -> None:
+    LAUNCHES[name] += 1
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def stream_ptr(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def operand(t: torch.Tensor, dtype: torch.dtype, name: str) -> torch.Tensor:
+    """A kernel operand on the card: right dtype, contiguous and 32-byte
+    aligned (WMMA fragment loads need it). Raises for a CPU tensor or a
+    wrong dtype; copies a strided or misaligned view."""
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    t = t.contiguous()
+    if t.data_ptr() % 32:
+        t = t.clone()
+    return t
+
+
+@contextlib.contextmanager
+def plain_path():
+    """Inside this block the modules call the plain PyTorch versions of the
+    kernels even on the card (to hold a whole model against its kernels)."""
+    global _enabled
+    prev, _enabled = _enabled, False
+    try:
+        yield
+    finally:
+        _enabled = prev
+
+
+def use_kernel(x: torch.Tensor) -> bool:
+    """A CUDA tensor goes to a kernel unless the plain path was asked for."""
+    return x.is_cuda and _enabled
+
+
+def route(x: torch.Tensor, fits: bool) -> bool:
+    """Module dispatch to a fused op. On the card: when the kernel's gate
+    holds and the plain path was not asked for. On the CPU the fused op's
+    wrapper takes its plain version, so it is taken unless the module path
+    was asked for with :func:`plain_path` (the tests exercise both)."""
+    return _enabled and (fits if x.is_cuda else True)
