@@ -7,18 +7,32 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 Phases (each announced on a flushed line with the seconds elapsed):
   1. device   card name and power limit, torch/CUDA versions; TF32 off.
-  2. build    the five CUDA kernels, one nvcc call, into
+  2. build    the eight CUDA kernels, one nvcc call, into
               upscale_a_video_tpu_torch/_build/ (skipped when already built).
   3. kernels  each kernel against its plain PyTorch version at every shape
-              the main path gives it (plus flash at the flagship's UNet
-              shape): error, time, plain time, PyTorch library time where one
-              call computes the same function, and the card's bound.
-  4. unet     one full-width UNet forward at the slice shape with the
-              kernels and then with the plain versions, same weights.
-  5. e2e      VideoUpscalePipeline at released width on a 64x64, 14-frame
-              clip (256x256 out), 30 DDIM steps, CFG 6, noise level 120,
-              fp32 3-frame VAE decode; every kernel must launch. Then the
-              same call on the plain versions (timed), and a 2-step pair.
+              the two paths give it (plus flash at the flagship's UNet shape,
+              and the GroupNorm and temporal conv, which no path runs, at the
+              shapes of the sites they would serve): error, time, plain time,
+              PyTorch library time where one call computes the same function,
+              and the card's bound. Each path below fails if it launched a
+              kernel at a shape this phase did not check (the wrappers count
+              launches by shape, ``_cuda.SHAPES``).
+  4. path 1   the 3D-VAE configuration: one full-width UNet forward at the
+              slice shape with the kernels and then with the plain versions,
+              same weights; then VideoUpscalePipeline at released width on a
+              64x64, 14-frame clip (256x256 out), 30 DDIM steps, CFG 6, noise
+              level 120, fp32 3-frame VAE decode; its five kernels must
+              launch. Then the same call on the plain versions (timed), and a
+              2-step pair.
+  5. path 2   the README's video-VAE configuration: the UNet check at T = 5,
+              96x160; then the pipeline on a 96x160, 5-frame clip (384x640
+              out), 30 steps, CFG 6, noise level 120, the fp32 video VAE
+              conditioned on the LR frames (w_lr 1.0), then the Wavelet colour
+              fix. Every temporal attention must go through the fused temporal
+              attention (480 launches), none through the whole-block kernel.
+              The decode alone with the kernels against the plain decode
+              (relative L2 gate), and a 2-step pair against the plain
+              versions.
 
 It exits non-zero, printing no result, without a CUDA device. Any failure
 raises. The last line is the JSON result; the two lines before it are the
@@ -37,6 +51,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from upscale_a_video_tpu_torch.config import VIDEO_VAE
 from upscale_a_video_tpu_torch.ops import _cuda
 from upscale_a_video_tpu_torch.ops.attention import attention_plain
 from upscale_a_video_tpu_torch.ops.cross_attention_block import (
@@ -44,18 +59,40 @@ from upscale_a_video_tpu_torch.ops.cross_attention_block import (
 from upscale_a_video_tpu_torch.ops.flash_attention import flash_attention
 from upscale_a_video_tpu_torch.ops.fused_feedforward import (fused_feedforward,
                                                              fused_feedforward_plain)
+from upscale_a_video_tpu_torch.ops.fused_groupnorm import fused_group_norm, group_norm_plain
+from upscale_a_video_tpu_torch.ops.fused_temporal_attention import (fused_temporal_attention,
+                                                                    temporal_attention_plain)
 from upscale_a_video_tpu_torch.ops.fused_temporal_resblock import (
     fused_temporal_resblock, fused_temporal_resblock_plain)
 from upscale_a_video_tpu_torch.ops.temporal_attention_block import (
     fused_temporal_attention_block, temporal_attention_block_plain)
+from upscale_a_video_tpu_torch.ops.temporal_conv import temporal_conv, temporal_conv_plain
 from upscale_a_video_tpu_torch.pipeline import random_pipeline
+from upscale_a_video_tpu_torch.pipeline.color import apply_color_fix
 
 T0 = time.time()
 PEAK_FLOPS = 989e12   # H100 SXM dense bf16 (data sheet)
+PEAK_FLOPS_F32 = 67e12  # H100 SXM fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 KERNEL_TOL = 2e-2     # max |kernel - plain| / max |plain|: a few bf16 ulps of the largest value
 UNET_TOL = 5e-2       # relative L2, whole bf16 UNet (~60 rounded layers)
-FRAMES, LR, STEPS = 14, 64, 30
+DECODE_TOL = 1e-2     # relative L2, fp32 decode whose one bf16 step is the mid-block attention
+FRAMES, LR, STEPS = 14, 64, 30            # path 1: 64x64, 14 frames
+FRAMES2, H2, W2 = 5, 96, 160              # path 2: 96x160, 5 frames
+# temporal resblock sites (B, T, H, W, C, k): TemporalModule3D (k = 5, with
+# temb) and the Transformer3D entry resblock (k = 3, no temb) at C <= 512,
+# after the CFG duplication (path 1: 2 windows x 2 rows; path 2: 2 rows) or
+# in the text-free prefix before it (half the rows)
+RESBLOCK_P1 = ((4, 8, 64, 64, 256, 5), (4, 8, 64, 64, 512, 5), (2, 8, 32, 32, 256, 5),
+               (4, 8, 32, 32, 512, 5), (4, 8, 32, 32, 512, 3), (4, 8, 16, 16, 512, 5),
+               (4, 8, 16, 16, 512, 3), (4, 8, 8, 8, 512, 5))
+RESBLOCK_P2 = ((2, 5, 96, 160, 256, 5), (2, 5, 96, 160, 512, 5), (1, 5, 48, 80, 256, 5),
+               (2, 5, 48, 80, 512, 5), (2, 5, 48, 80, 512, 3), (2, 5, 24, 40, 512, 5),
+               (2, 5, 24, 40, 512, 3), (2, 5, 12, 20, 512, 5))
+PATH1_KERNELS = ("temporal_attention_block", "fused_temporal_resblock", "cross_attention_block",
+                 "fused_feedforward", "flash_attention")
+PATH2_KERNELS = ("fused_temporal_attention", "fused_temporal_resblock", "cross_attention_block",
+                 "fused_feedforward", "flash_attention")
 
 SOURCES = {
     "temporal_attention_block": ("upscale_a_video_tpu_torch/csrc/temporal_attention_block.cu",
@@ -68,6 +105,12 @@ SOURCES = {
                           "upscale_a_video_tpu/ops/fused_feedforward.py:95"),
     "flash_attention": ("upscale_a_video_tpu_torch/csrc/flash_attention.cu",
                         "upscale_a_video_tpu/ops/flash_attention.py:100"),
+    "fused_temporal_attention": ("upscale_a_video_tpu_torch/csrc/fused_temporal_attention.cu",
+                                 "upscale_a_video_tpu/ops/fused_temporal_attention.py:95"),
+    "fused_group_norm": ("upscale_a_video_tpu_torch/csrc/fused_groupnorm.cu",
+                         "upscale_a_video_tpu/ops/fused_groupnorm.py:90"),
+    "temporal_conv": ("upscale_a_video_tpu_torch/csrc/temporal_conv.cu",
+                      "upscale_a_video_tpu/ops/temporal_conv.py:81"),
 }
 
 
@@ -116,8 +159,8 @@ class Inputs:
         return self.normal(c, scale=0.1) + 1, self.normal(c, scale=0.1)
 
 
-def bound_ms(nbytes: float, flops: float):
-    t_b, t_f = nbytes / PEAK_BYTES, flops / PEAK_FLOPS
+def bound_ms(nbytes: float, flops: float, peak: float = PEAK_FLOPS):
+    t_b, t_f = nbytes / PEAK_BYTES, flops / peak
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
 
 
@@ -125,7 +168,13 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def compare(name, shape, kern, plain, nbytes_, flops, library=None):
+def taps(k: int, t: int) -> int:
+    """Temporal taps of a (k,1,1) SAME conv that land inside [0, t), summed
+    over the t frames."""
+    return sum(min(t, f + k // 2 + 1) - max(0, f - k // 2) for f in range(t))
+
+
+def compare(name, shape, kern, plain, nbytes_, flops, library=None, peak=PEAK_FLOPS):
     out, ref = kern(), plain()
     torch.cuda.synchronize()
     if out.shape != ref.shape or not torch.isfinite(out.float()).all():
@@ -134,7 +183,7 @@ def compare(name, shape, kern, plain, nbytes_, flops, library=None):
     rel = err / max(ref.float().abs().max().item(), 1e-30)
     ms, plain_ms = cuda_ms(kern), cuda_ms(plain)
     lib_ms = cuda_ms(library) if library is not None else None
-    b_ms, b_by = bound_ms(nbytes_, flops)
+    b_ms, b_by = bound_ms(nbytes_, flops, peak)
     rec = dict(name=name, shape=shape, max_abs_err=err, rel_err=rel, tol=KERNEL_TOL, ms=ms,
                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
     log(json.dumps(rec))
@@ -147,7 +196,7 @@ def compare(name, shape, kern, plain, nbytes_, flops, library=None):
 def check_kernels():
     recs = []
     inp = Inputs(1)
-    # 1. temporal attention block: every UNet transformer level
+    # 1. temporal attention block: every UNet transformer level of path 1
     for s, c in ((1024, 512), (256, 512), (64, 1024)):
         x = inp.normal(32, s, c)
         lw, lb = inp.norm(c)
@@ -157,65 +206,66 @@ def check_kernels():
         args = (x, lw, lb, wq, wk, wv, wo, bo, bias)
         tokens = x.shape[0] * s
         recs.append(compare(
-            "temporal_attention_block", [32, s, c],
+            "temporal_attention_block", [32, s, c, 8],
             lambda: fused_temporal_attention_block(*args, video_length=8, add_residual=True),
             lambda: temporal_attention_block_plain(*args, 8, 32, 1e-5, True),
             nbytes(x, x, lw, lb, wq, wk, wv, wo, bo, bias),
             tokens * (8 * c * c + 4 * 8 * c)))
-    # 2. temporal resblock: TemporalModule3D (k=5, temb) at C <= 512, and the
-    # Transformer3D entry resblock (k=3, no temb)
-    for (hw, c, k, temb_on, batch) in ((64, 256, 5, True, 4), (32, 512, 5, True, 4),
-                                       (16, 512, 5, True, 4), (64, 256, 5, True, 2),
-                                       (32, 512, 3, False, 4), (16, 512, 3, False, 4)):
-        x = inp.normal(batch, 8, hw, hw, c)
+    # 2. temporal resblock at every site of both paths
+    for (batch, t, hh, ww, c, k) in RESBLOCK_P1 + RESBLOCK_P2:
+        x = inp.normal(batch, t, hh, ww, c)
         n1w, n1b = inp.norm(c)
         n2w, n2b = inp.norm(c)
         w1 = inp.weight(c, c, k, 1, 1, fan_in=c * k)
         w2 = inp.weight(c, c, 3, 1, 1, fan_in=c * 3)
         b1, b2 = inp.normal(c, scale=0.1), inp.normal(c, scale=0.1)
-        temb = inp.normal(batch, c, dtype=torch.float32) if temb_on else None
+        temb = inp.normal(batch, c, dtype=torch.float32) if k == 5 else None
         args = (x, n1w, n1b, w1, b1, temb, n2w, n2b, w2, b2)
-        taps = lambda kk: sum(min(8, t + kk // 2 + 1) - max(0, t - kk // 2) for t in range(8))
-        rows = batch * hw * hw  # pixels; taps counted over the 8 frames
+        rows = batch * hh * ww  # pixels; taps counted over the T frames
         recs.append(compare(
-            "fused_temporal_resblock", [batch, 8, hw, hw, c, k],
+            "fused_temporal_resblock", [batch, t, hh, ww, c, k],
             lambda: fused_temporal_resblock(*args, groups=32, eps=1e-6),
             lambda: fused_temporal_resblock_plain(*args, 32, 1e-6),
             nbytes(x, x, w1, w2, b1, b2, n1w, n1b, n2w, n2b),
-            2.0 * rows * c * c * (taps(k) + taps(3))))
-    # 3. text cross-attention at the C = 512 levels (context (4, 77, 1024))
-    ctx = inp.normal(4, 77, 1024)
-    wk_, wv_ = inp.weight(512, 1024), inp.weight(512, 1024)
-    k_, v_ = F.linear(ctx, wk_), F.linear(ctx, wv_)
-    for s in (1024, 256):
-        x = inp.normal(32, s, 512)
+            2.0 * rows * c * c * (taps(k, t) + taps(3, t))))
+    # 3. text cross-attention at the C = 512 levels: path 1 (context (4, 77,
+    # 1024), T = 8) and path 2 (context (2, 77, 1024), T = 5)
+    for b, t, s in ((4, 8, 1024), (4, 8, 256), (2, 5, 3840), (2, 5, 960)):
+        ctx = inp.normal(b, 77, 1024)
+        wk_, wv_ = inp.weight(512, 1024), inp.weight(512, 1024)
+        k_, v_ = F.linear(ctx, wk_), F.linear(ctx, wv_)
+        x = inp.normal(b * t, s, 512)
         lw, lb = inp.norm(512)
         wq, wo = inp.weight(512, 512), inp.weight(512, 512)
         bo = inp.normal(512, scale=0.1)
         m, vo = fold(wq, k_, v_, wo, 8, 64)
         recs.append(compare(
-            "cross_attention_block", [32, s, 512],
+            "cross_attention_block", [b * t, s, 512, t],
             lambda: fused_cross_attention_block(x, lw, lb, wq, k_, v_, wo, bo, heads=8,
-                                                dim_head=64, t_repeat=8, add_residual=True),
+                                                dim_head=64, t_repeat=t, add_residual=True),
             lambda: cross_attention_block_plain(x, lw, lb, m.to(torch.bfloat16),
-                                                vo.to(torch.bfloat16), 77, bo, 8, 1e-5, True),
+                                                vo.to(torch.bfloat16), 77, bo, t, 1e-5, True),
             nbytes(x, x, lw, lb, wq, k_, v_, wo, bo),
-            32.0 * s * 4 * 512 * 8 * 77))
-    # 4. feed-forward: every transformer level
-    for s, c in ((1024, 512), (256, 512), (64, 1024)):
-        x = inp.normal(32, s, c)
+            float(b * t) * s * 4 * 512 * 8 * 77))
+    # 4. feed-forward: every transformer level of path 1 (B*T = 32) and of
+    # path 2 (B*T = 10)
+    for bt, s, c in ((32, 1024, 512), (32, 256, 512), (32, 64, 1024),
+                     (10, 3840, 512), (10, 960, 512), (10, 240, 1024)):
+        x = inp.normal(bt, s, c)
         lw, lb = inp.norm(c)
         w1, b1 = inp.weight(8 * c, c), inp.normal(8 * c, scale=0.1)
         w2, b2 = inp.weight(c, 4 * c), inp.normal(c, scale=0.1)
         args = (x, lw, lb, w1, b1, w2, b2)
         recs.append(compare(
-            "fused_feedforward", [32, s, c],
+            "fused_feedforward", [bt, s, c],
             lambda: fused_feedforward(*args, add_residual=True),
             lambda: fused_feedforward_plain(*args, 1e-5, True),
-            nbytes(x, x, lw, lb, w1, b1, w2, b2), 32.0 * s * 24 * c * c))
-    # 5. flash attention: VAE mid block (3 frames, 64x64 latent, d = 512) and
-    # the flagship's C = 1024 UNet self-attention (40x40 latent)
-    for bsz, h, s, d in ((3, 1, 4096, 512), (1, 8, 1600, 128)):
+            nbytes(x, x, lw, lb, w1, b1, w2, b2), float(bt) * s * 24 * c * c))
+    # 5. flash attention: the VAE mid block (d = 512) in 3- and 2-frame decode
+    # chunks, at path 1's 64x64 and path 2's 96x160 latent, and the
+    # flagship's C = 1024 UNet self-attention (40x40 latent)
+    for bsz, h, s, d in ((3, 1, 4096, 512), (2, 1, 4096, 512), (3, 1, 15360, 512),
+                         (2, 1, 15360, 512), (1, 8, 1600, 128)):
         q, k, v = (inp.normal(bsz, h, s, d) for _ in range(3))
         scale = d ** -0.5
         recs.append(compare(
@@ -224,14 +274,61 @@ def check_kernels():
             lambda: attention_plain(q, k, v, scale),
             nbytes(q, k, v, q), 4.0 * bsz * h * s * s * d,
             library=lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)))
+    # 6. fused temporal attention: path 2's UNet levels 1-3 (T = 5, CFG rows
+    # B = 2: B' = 2 * 48*80, 2 * 24*40, 2 * 12*20), and T = 8 at B' = 2048
+    for bp, t, h, d in ((7680, 5, 8, 64), (1920, 5, 8, 64), (480, 5, 8, 128), (2048, 8, 8, 64)):
+        q, k = inp.normal(bp, t, h, d, scale=0.3), inp.normal(bp, t, h, d, scale=0.3)
+        v = inp.normal(bp, t, h, d)
+        bias = inp.normal(h, t, t, dtype=torch.float32)
+        qh, kh, vh = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+        mask = bias.to(torch.bfloat16)[None]
+        recs.append(compare(
+            "fused_temporal_attention", [bp, t, h, d],
+            lambda: fused_temporal_attention(q, k, v, bias),
+            lambda: temporal_attention_plain(q, k, v, bias),
+            nbytes(q, k, v, bias, q), 4.0 * bp * h * t * t * d,
+            library=lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
+                                                           scale=1.0)))
+    # 7. GroupNorm (+ SiLU): the video VAE decoder's fp32 sites (mid block at
+    # the 96x160 latent, last up block at 384x640, 3-frame chunks) and a bf16
+    # UNet shape; the library call (channels first) only without the SiLU
+    for shape, dt in (((1, 3, 96, 160, 512), torch.float32),
+                      ((1, 3, 384, 640, 128), torch.float32),
+                      ((4, 8, 64, 64, 256), torch.bfloat16)):
+        c = shape[-1]
+        x = inp.normal(*shape, scale=2.0, dtype=dt) + 0.5
+        gw, gb = (a.to(dt) for a in inp.norm(c))
+        xc = x.movedim(-1, 1).contiguous()
+        peak = PEAK_FLOPS_F32 if dt == torch.float32 else PEAK_FLOPS
+        for act in (None, "silu"):
+            recs.append(compare(
+                "fused_group_norm", [*shape, str(dt).split(".")[-1], act],
+                lambda: fused_group_norm(x, gw, gb, 32, 1e-6, act),
+                lambda: group_norm_plain(x, gw, gb, 32, 1e-6, act),
+                nbytes(x, gw, gb, x), (8.0 if act else 5.0) * x.numel(),
+                library=(lambda: F.group_norm(xc, 32, gw, gb, 1e-6)) if act is None else None,
+                peak=peak))
+    # 8. temporal conv: the (k,1,1) temporal convs of path 1's resblocks
+    for (batch, t, hh, ww, c, k) in RESBLOCK_P1:
+        x = inp.normal(batch, t, hh, ww, c)
+        w = inp.weight(c, c, k, 1, 1, fan_in=c * k)
+        b = inp.normal(c, scale=0.1)
+        xc = x.permute(0, 4, 1, 2, 3)  # channels-last 3-D view of the same memory
+        recs.append(compare(
+            "temporal_conv", [batch, t, hh, ww, c, k],
+            lambda: temporal_conv(x, w, b), lambda: temporal_conv_plain(x, w, b),
+            nbytes(x, w, b, x), 2.0 * batch * hh * ww * c * c * taps(k, t),
+            library=lambda: F.conv3d(xc, w, b, padding=(k // 2, 0, 0))))
     return recs
 
 
-def check_unet(pipe):
+def check_unet(pipe, frames: int, h: int, w: int):
+    """One full-width UNet forward (CFG rows, B = 2) with the kernels and
+    with the plain versions, same weights and inputs."""
     inp = Inputs(2)
     unet = pipe.m.unet
-    sample = inp.normal(2, 8, LR, LR, 4)
-    low_res = inp.normal(2, 8, LR, LR, 3)
+    sample = inp.normal(2, frames, h, w, 4)
+    low_res = inp.normal(2, frames, h, w, 3)
     ctx = inp.normal(4, 77, 1024)
     level = torch.full((2,), 120, device="cuda")
     with torch.no_grad():
@@ -244,9 +341,40 @@ def check_unet(pipe):
         f"finite={bool(torch.isfinite(out).all())}")
     if not (torch.isfinite(out).all() and rel <= UNET_TOL):
         raise AssertionError(f"UNet with kernels disagrees with the plain UNet: {rel:.3e}")
+    return rel
 
 
-def run_e2e(pipe, card: str):
+def check_output(out, shape):
+    log(f"output {tuple(out.shape)} finite={bool(torch.isfinite(out).all())} "
+        f"min={out.min().item():.4f} max={out.max().item():.4f} std={out.std().item():.4f}")
+    if tuple(out.shape) != shape:
+        raise AssertionError(f"output shape {tuple(out.shape)}, expected {shape}")
+    if not (torch.isfinite(out).all() and out.min() >= -1 and out.max() <= 1):
+        raise AssertionError("output not finite or outside [-1, 1]")
+
+
+def check_launches(path: str, launches, shapes, kernels, checked):
+    """Each kernel of the path launched, and at no shape that the kernels
+    phase did not hold against its plain version."""
+    log(f"{path} launches: {json.dumps(launches)}")
+    log(f"{path} launches by shape: {json.dumps(shapes)}")
+    missing = [k for k in kernels if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels of {path} never launched: {missing}")
+    unchecked = [(k, s) for k, by_shape in shapes.items() for s in by_shape
+                 if (k, s) not in checked]
+    if unchecked:
+        raise AssertionError(f"{path} launched kernels at shapes the kernels phase did not "
+                             f"check: {unchecked}")
+
+
+def launch_shapes():
+    """The launches of the last run by kernel and shape, shapes as strings."""
+    return {k: {json.dumps(list(s)): n for s, n in v.items()} for k, v in _cuda.SHAPES.items()
+            if v}
+
+
+def run_path1(pipe, card: str, checked):
     g = torch.Generator(device="cuda").manual_seed(3)
     image = torch.rand((1, FRAMES, LR, LR, 3), generator=g, device="cuda") * 2 - 1
     torch.cuda.synchronize()
@@ -257,21 +385,14 @@ def run_e2e(pipe, card: str):
                generator=torch.Generator(device="cuda").manual_seed(4))
     torch.cuda.synchronize()
     secs = time.time() - t0
-    launches = dict(_cuda.LAUNCHES)
+    launches, shapes = dict(_cuda.LAUNCHES), launch_shapes()
     fps = FRAMES / secs
-    log(f"e2e: {FRAMES} frames {LR}x{LR} -> {tuple(out.shape)} in {secs:.2f} s: {fps:.4f} "
-        f"frames/s on {card}")
-    log(f"output finite={bool(torch.isfinite(out).all())} min={out.min().item():.4f} "
-        f"max={out.max().item():.4f} std={out.std().item():.4f}")
-    log(f"max_memory_allocated={torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    log(f"launches: {json.dumps(launches)}")
-    if tuple(out.shape) != (1, FRAMES, 4 * LR, 4 * LR, 3):
-        raise AssertionError(f"output shape {tuple(out.shape)}")
-    if not (torch.isfinite(out).all() and out.min() >= -1 and out.max() <= 1):
-        raise AssertionError("output not finite or outside [-1, 1]")
-    missing = [k for k, v in launches.items() if v == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the main path: {missing}")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"path 1 e2e: {FRAMES} frames {LR}x{LR} -> {tuple(out.shape)} in {secs:.2f} s: "
+        f"{fps:.4f} frames/s on {card}")
+    log(f"max_memory_allocated={peak / 2**30:.2f} GiB")
+    check_output(out, (1, FRAMES, 4 * LR, 4 * LR, 3))
+    check_launches("path 1", launches, shapes, PATH1_KERNELS, checked)
 
     # the same call on the plain PyTorch versions, for the kernels' end-to-end
     # effect. 30 bf16 steps with CFG 6 amplify rounding chaotically, so the
@@ -294,7 +415,76 @@ def run_e2e(pipe, card: str):
         f"{(out - ref).abs().max().item():.4f} mean {(out - ref).abs().mean().item():.5f}; "
         f"2 steps max {(out2 - ref2).abs().max().item():.4f} mean "
         f"{(out2 - ref2).abs().mean().item():.5f}")
-    return launches, secs, plain_secs
+    return dict(launches=launches, launches_by_shape=shapes, seconds=secs,
+                plain_seconds=plain_secs, frames=FRAMES,
+                frames_per_s=fps, peak_gib=peak / 2**30)
+
+
+def run_path2(pipe, card: str, checked):
+    """The README's video-VAE configuration on a short clip: every temporal
+    attention of the UNet goes through the fused temporal attention (T = 5
+    fits no row tile of the whole-block kernel)."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+    image = torch.rand((1, FRAMES2, H2, W2, 3), generator=g, device="cuda") * 2 - 1
+    run = lambda steps: pipe("a video", image, num_inference_steps=steps, guidance_scale=6.0,
+                             noise_level=120, w_lr=1.0,
+                             generator=torch.Generator(device="cuda").manual_seed(4))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launch_counts()
+    t0 = time.time()
+    out = run(STEPS)
+    torch.cuda.synchronize()
+    pipe_secs = time.time() - t0
+    fixed = apply_color_fix("Wavelet", out[0], image[0])[None]
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    launches, shapes = dict(_cuda.LAUNCHES), launch_shapes()
+    peak = torch.cuda.max_memory_allocated()
+    fps = FRAMES2 / secs
+    log(f"path 2 e2e: {FRAMES2} frames {H2}x{W2} -> {tuple(fixed.shape)} in {secs:.2f} s "
+        f"(pipeline {pipe_secs:.2f} s, colour fix {secs - pipe_secs:.2f} s): {fps:.4f} "
+        f"frames/s on {card}")
+    log(f"max_memory_allocated={peak / 2**30:.2f} GiB")
+    check_output(out, (1, FRAMES2, 4 * H2, 4 * W2, 3))
+    log(f"colour-fixed output finite={bool(torch.isfinite(fixed).all())} "
+        f"min={fixed.min().item():.4f} max={fixed.max().item():.4f}")
+    if fixed.shape != out.shape or not torch.isfinite(fixed).all():
+        raise AssertionError("colour-fixed output has the wrong shape or is not finite")
+    check_launches("path 2", launches, shapes, PATH2_KERNELS, checked)
+    if launches["fused_temporal_attention"] != 16 * STEPS or launches["temporal_attention_block"]:
+        raise AssertionError("path 2 must run its 16 temporal attentions per step through the "
+                             "fused temporal attention and none through the whole-block kernel")
+
+    # the decode alone on latents of the same shape: its time, and the decode
+    # with the kernels (flash in the mid block) against the plain decode
+    lat = torch.randn((1, FRAMES2, H2, W2, 4), generator=g, device="cuda")
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.time()
+        dec = pipe.decode_latents(lat, image, 1.0)
+        torch.cuda.synchronize()
+        decode_secs = time.time() - t0
+        with _cuda.plain_path():
+            dec_ref = pipe.decode_latents(lat, image, 1.0)
+    dec_rel = ((dec - dec_ref).norm() / dec_ref.norm()).item()
+    log(f"path 2 decode alone (video VAE, fp32, {FRAMES2} frames): {decode_secs:.2f} s; "
+        f"rel L2 kernels vs plain = {dec_rel:.3e} (tol {DECODE_TOL}), max |diff| "
+        f"{(dec - dec_ref).abs().max().item():.3e}")
+    if not (torch.isfinite(dec).all() and dec_rel <= DECODE_TOL):
+        raise AssertionError(f"the decode with kernels disagrees with the plain decode: "
+                             f"{dec_rel:.3e}")
+
+    # a 2-step pair against the plain versions (reported, not gated)
+    with _cuda.plain_path():
+        ref2 = run(2)
+    out2 = run(2)
+    log(f"path 2, 2 steps: |kernels - plain| max {(out2 - ref2).abs().max().item():.4f} mean "
+        f"{(out2 - ref2).abs().mean().item():.5f}")
+    return dict(launches=launches, launches_by_shape=shapes, seconds=secs,
+                pipeline_seconds=pipe_secs, decode_seconds=decode_secs, decode_rel_l2=dec_rel,
+                frames=FRAMES2, frames_per_s=fps,
+                peak_gib=peak / 2**30)
 
 
 def main() -> int:
@@ -318,24 +508,36 @@ def main() -> int:
 
     phase("kernels")
     recs = check_kernels()
+    checked = {(r["name"], json.dumps(r["shape"])) for r in recs}
 
-    phase("model (random weights on the card)")
+    phase("path 1: model (random weights on the card)")
     t0 = time.time()
     pipe = random_pipeline(device="cuda", seed=0)
     torch.cuda.synchronize()
     log(f"built the pipeline in {time.time() - t0:.1f} s")
+    phase("path 1: unet")
+    check_unet(pipe, 8, LR, LR)
+    phase("path 1: e2e")
+    path1 = run_path1(pipe, card, checked)
+    del pipe
+    torch.cuda.empty_cache()
 
-    phase("unet")
-    check_unet(pipe)
+    phase("path 2: model (random weights on the card, video VAE)")
+    t0 = time.time()
+    pipe = random_pipeline(device="cuda", seed=0, vae_config=VIDEO_VAE)
+    torch.cuda.synchronize()
+    log(f"built the pipeline in {time.time() - t0:.1f} s")
+    phase("path 2: unet at T = 5")
+    check_unet(pipe, FRAMES2, H2, W2)
+    phase("path 2: e2e")
+    path2 = run_path2(pipe, card, checked)
+    del pipe
+    torch.cuda.empty_cache()
 
-    phase("e2e")
-    launches, secs, plain_secs = run_e2e(pipe, card)
-
+    paths = {"path1": path1, "path2": path2}
     os.makedirs("chiprun_out", exist_ok=True)
     with open("chiprun_out/chip_smoke_kernels.json", "w") as f:
-        json.dump({"card": card, "e2e_seconds": secs, "e2e_plain_seconds": plain_secs,
-                   "frames": FRAMES, "steps": STEPS,
-                   "launches": launches, "kernels": recs}, f, indent=1)
+        json.dump({"card": card, "steps": STEPS, "paths": paths, "kernels": recs}, f, indent=1)
     main_shape = {}
     for r in recs:  # the largest slice shape of each kernel stands for it
         if r["name"] not in main_shape or r["bound_ms"] > main_shape[r["name"]]["bound_ms"]:
@@ -343,8 +545,10 @@ def main() -> int:
     kernels = []
     for name, r in main_shape.items():
         src, replaces = SOURCES[name]
+        by_path = {p: v["launches"][name] for p, v in paths.items()}
         kernels.append(dict(name=name, route="cuda", source=src, replaces=replaces,
-                            launches=launches[name], max_abs_err=r["max_abs_err"], ms=r["ms"],
+                            launches=sum(by_path.values()), launches_by_path=by_path,
+                            max_abs_err=r["max_abs_err"], ms=r["ms"],
                             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                             bound_by=r["bound_by"], library_ms=r["library_ms"],
                             shape=r["shape"]))

@@ -42,6 +42,11 @@ def test_port_and_chip_smoke_import_with_jax_blocked():
         "import upscale_a_video_tpu_torch, upscale_a_video_tpu_torch.pipeline\n"
         "import upscale_a_video_tpu_torch.ops.flash_attention\n"
         "import upscale_a_video_tpu_torch.ops.fused_temporal_resblock\n"
+        "import upscale_a_video_tpu_torch.ops.fused_temporal_attention\n"
+        "import upscale_a_video_tpu_torch.ops.fused_groupnorm\n"
+        "import upscale_a_video_tpu_torch.ops.temporal_conv\n"
+        "import upscale_a_video_tpu_torch.ops.resize\n"
+        "import upscale_a_video_tpu_torch.pipeline.color\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', "
         "'upscale_a_video_tpu') and sys.modules[m] is not None]\n"

@@ -7,6 +7,6 @@ the caller passes ``device="cpu"``; on the CPU every hand-written kernel is
 replaced by its plain PyTorch version.
 """
 
-from .config import UNetVideoConfig, VaeConfig, resolve_device
+from .config import VIDEO_VAE, UNetVideoConfig, VaeConfig, resolve_device
 
-__all__ = ["UNetVideoConfig", "VaeConfig", "resolve_device"]
+__all__ = ["UNetVideoConfig", "VaeConfig", "VIDEO_VAE", "resolve_device"]

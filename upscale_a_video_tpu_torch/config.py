@@ -43,15 +43,29 @@ class UNetVideoConfig:
 
 @dataclasses.dataclass(frozen=True)
 class VaeConfig:
-    """The released 3D VAE's decoder (ref configs/vae_3d_config.json); the
-    video VAE's fields come with its slice of the port."""
+    """AutoencoderKLVideo's decoder config (ref autoencoder_kl_cond_video.py:48-97).
+    The defaults are the released 3D VAE (configs/vae_3d_config.json);
+    :data:`VIDEO_VAE` is the released video VAE (configs/vae_video_config.json)."""
 
     out_channels: int = 3
     latent_channels: int = 4
     block_out_channels: Tuple[int, ...] = (128, 256, 512)
+    up_block_types: Tuple[str, ...] = ("UpDecoderBlock3D",) * 3
     layers_per_block: int = 2
     norm_num_groups: int = 32
     scaling_factor: float = 0.08333
+    condition_img: bool = False
+    condition_channels: int = 128
+    use_temporal_block: bool = False  # stored only, as the reference stores it
+
+    @property
+    def is_plus(self) -> bool:
+        """Decoder blocks with the (3,3,3) temporal residual branch."""
+        return self.up_block_types[0] == "UpDecoderBlock3D_plus"
+
+
+VIDEO_VAE = VaeConfig(up_block_types=("UpDecoderBlock3D_plus",) * 3, condition_img=True,
+                      condition_channels=128, use_temporal_block=True)
 
 
 def resolve_device(device=None) -> torch.device:

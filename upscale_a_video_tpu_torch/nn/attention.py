@@ -4,7 +4,9 @@ attention block. Mirror of ``upscale_a_video_tpu/nn/attention.py``.
 
 ``BasicTransformerBlock`` sends its text cross-attentions, its temporal
 attention and its feed-forward to the fused kernels where their gates hold
-(dispatch sites of the reference: ``:399-484``, ``:490-524``, ``:542-555``).
+(dispatch sites of the reference: ``:399-484``, ``:490-524``, ``:542-555``);
+where the whole-block temporal kernel's gate fails, ``TemporalAttention``
+sends its attention core to the fused temporal attention (``:132-147``).
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ from ..ops import _cuda
 from ..ops.attention import attention
 from ..ops.cross_attention_block import cross_attention_block_fits, fused_cross_attention_block
 from ..ops.fused_feedforward import feedforward_fits, fused_feedforward, gelu_tanh
+from ..ops.fused_temporal_attention import (fused_temporal_attention,
+                                            fused_temporal_attention_fits)
 from ..ops.relpos import relative_position_buckets
 from ..ops.rope import apply_rotary
 from ..ops.temporal_attention_block import (fused_temporal_attention_block,
@@ -76,7 +80,10 @@ class RelativePositionBias(nn.Module):
 
 class TemporalAttention(nn.Module):
     """Attention across the frames of each pixel (ref attention.py:626-733):
-    T5 bias, RoPE on the first 32 dims, q scaled before the rotation."""
+    T5 bias, RoPE on the first 32 dims, q scaled before the rotation. q/k/v
+    stay in the (B', T, H, D) layout, as in the JAX fused branch
+    (``nn/attention.py:141-147``); the attention goes to the fused temporal
+    attention where its gate holds, else to the plain attention."""
 
     def __init__(self, query_dim: int, heads: int = 8, dim_head: int = 64, rope_dim: int = 32):
         super().__init__()
@@ -90,16 +97,21 @@ class TemporalAttention(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: (B', T, C) → (B', T, C)."""
-        t = x.shape[1]
+        b, t, _ = x.shape
+        h, d = self.heads, self.dim_head
         bias = self.time_rel_pos_bias(t)
-        q = _split_heads(self.to_q(x), self.heads) * (self.dim_head ** -0.5)
-        k = _split_heads(self.to_k(x), self.heads)
-        v = _split_heads(self.to_v(x), self.heads)
-        rot = min(self.rope_dim, self.dim_head)
-        q = apply_rotary(q, rot)
-        k = apply_rotary(k, rot)
-        out = attention(q, k, v, 1.0, bias=bias[None])
-        return self.to_out[0](_merge_heads(out))
+        q = self.to_q(x).reshape(b, t, h, d) * (d ** -0.5)
+        k = self.to_k(x).reshape(b, t, h, d)
+        v = self.to_v(x).reshape(b, t, h, d)
+        rot = min(self.rope_dim, d)
+        q = apply_rotary(q, rot, seq_axis=-3)
+        k = apply_rotary(k, rot, seq_axis=-3)
+        if _cuda.route(x, fused_temporal_attention_fits(q)):
+            out = fused_temporal_attention(q, k, v, bias)
+        else:
+            out = attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), 1.0,
+                            bias=bias[None]).transpose(1, 2)
+        return self.to_out[0](out.reshape(b, t, h * d))
 
 
 class GEGLU(nn.Module):

@@ -17,6 +17,7 @@ import torch.nn.functional as F
 
 from ..ops import _cuda
 from ..ops.fused_feedforward import layer_norm
+from ..ops.fused_groupnorm import fused_group_norm, fused_group_norm_fits, group_norm_plain
 from ..ops.fused_temporal_resblock import fused_resblock_fits, fused_temporal_resblock
 
 
@@ -38,6 +39,25 @@ class GroupNorm(nn.Module):
         y = (xg - mean) * torch.rsqrt(var + self.eps)
         y = y.reshape(n, -1, c) * self.weight.float() + self.bias.float()
         return y.to(x.dtype).reshape(x.shape)
+
+
+class FusedGroupNorm(nn.Module):
+    """GroupNorm (+ SiLU with ``act="silu"``) through the fused GroupNorm
+    kernel where its gate holds (ref ``nn/blocks.py:57-83``). As in the JAX
+    package no model uses it: the resblocks keep :class:`GroupNorm`."""
+
+    def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-6,
+                 act: Optional[str] = None):
+        super().__init__()
+        self.num_groups, self.eps, self.act = num_groups, eps, act
+        self.weight = nn.Parameter(torch.ones(num_channels))
+        self.bias = nn.Parameter(torch.zeros(num_channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if _cuda.route(x, fused_group_norm_fits(x, self.num_groups, self.act)):
+            return fused_group_norm(x, self.weight, self.bias, self.num_groups, self.eps,
+                                    self.act)
+        return group_norm_plain(x, self.weight, self.bias, self.num_groups, self.eps, self.act)
 
 
 class LayerNorm(nn.LayerNorm):
@@ -166,3 +186,41 @@ class ResnetBlock3DCNN(_ResnetCore):
     """Temporal resblock with (k,1,1) convs (ref resnet.py:297-393)."""
 
     temporal = True
+
+
+class ResnetBlock3DPlus(ResnetBlock3D):
+    """Spatial resblock plus a GroupNorm → SiLU → (3,3,3) conv residual
+    branch, zero-initialised in the reference (ref resnet.py:396-499). Used
+    by the video VAE's decoder blocks."""
+
+    def __init__(self, in_channels: int, out_channels: Optional[int] = None,
+                 temb_channels: Optional[int] = 512, groups: int = 32,
+                 groups_out: Optional[int] = None, eps: float = 1e-6):
+        super().__init__(in_channels, out_channels, temb_channels, groups, groups_out, eps)
+        self.norm_3d = GroupNorm(self.groups_out, self.out_channels, eps)
+        self.conv_3d = TemporalConv(self.out_channels, self.out_channels, (3, 3, 3))
+
+    def forward(self, x: torch.Tensor, temb: Optional[torch.Tensor] = None) -> torch.Tensor:
+        out = super().forward(x, temb)
+        return out + self.conv_3d(F.silu(self.norm_3d(out)))
+
+
+class FuseSFTBlock(nn.Module):
+    """SFT fusion of the LR-condition features into the decoder features
+    (ref resnet.py:63-79): two resblocks on concat(enc, dec), then a learned
+    scale and shift applied to ``dec`` with weight ``w``."""
+
+    def __init__(self, enc_channels: int, dec_channels: int, groups: int = 32):
+        super().__init__()
+        self.shared = nn.ModuleList([
+            ResnetBlock3D(enc_channels + dec_channels, dec_channels, None, groups, groups),
+            ResnetBlock3D(dec_channels, dec_channels, None, groups, groups)])
+        self.scale = InflatedConv(dec_channels, dec_channels, 3, padding=1)
+        self.shift = InflatedConv(dec_channels, dec_channels, 3, padding=1)
+
+    def forward(self, enc_feat: torch.Tensor, dec_feat: torch.Tensor,
+                w: float = 1.0) -> torch.Tensor:
+        h = torch.cat([enc_feat, dec_feat], dim=-1)
+        for block in self.shared:
+            h = block(h)
+        return dec_feat + w * (dec_feat * self.scale(h) + self.shift(h))

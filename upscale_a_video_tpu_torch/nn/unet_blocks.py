@@ -9,7 +9,7 @@ import torch
 import torch.nn as nn
 
 from .attention import SpatialAttentionBlock, Transformer3DModel
-from .blocks import Downsample3D, ResnetBlock3D, Upsample3D
+from .blocks import Downsample3D, ResnetBlock3D, ResnetBlock3DPlus, Upsample3D
 
 
 class CrossAttnDownBlock3D(nn.Module):
@@ -134,13 +134,15 @@ class UpBlock3D(_UpBlock):
 
 
 class UNetMidBlock3D(nn.Module):
-    """VAE mid block: resnet → (spatial attention → resnet) × num_layers."""
+    """VAE mid block: resnet → (spatial attention → resnet) × num_layers;
+    ``plus=True`` takes ResnetBlock3DPlus (UNetMidBlock3D_plus)."""
 
     def __init__(self, in_channels, num_layers=1, resnet_eps=1e-6, resnet_groups=32,
-                 attn_num_head_channels=None):
+                 attn_num_head_channels=None, plus=False):
         super().__init__()
+        block = ResnetBlock3DPlus if plus else ResnetBlock3D
         self.resnets = nn.ModuleList([
-            ResnetBlock3D(in_channels, in_channels, None, groups=resnet_groups, eps=resnet_eps)
+            block(in_channels, in_channels, None, groups=resnet_groups, eps=resnet_eps)
             for _ in range(num_layers + 1)])
         self.attentions = nn.ModuleList([
             SpatialAttentionBlock(in_channels, attn_num_head_channels, resnet_groups, resnet_eps)
@@ -154,12 +156,16 @@ class UNetMidBlock3D(nn.Module):
 
 
 class UpDecoderBlock3D(nn.Module):
+    """VAE decoder stage; ``plus=True`` takes ResnetBlock3DPlus
+    (UpDecoderBlock3D_plus)."""
+
     def __init__(self, in_channels, out_channels, num_layers=3, resnet_eps=1e-6,
-                 resnet_groups=32, add_upsample=True):
+                 resnet_groups=32, add_upsample=True, plus=False):
         super().__init__()
+        block = ResnetBlock3DPlus if plus else ResnetBlock3D
         self.resnets = nn.ModuleList([
-            ResnetBlock3D(in_channels if i == 0 else out_channels, out_channels, None,
-                          groups=resnet_groups, eps=resnet_eps) for i in range(num_layers)])
+            block(in_channels if i == 0 else out_channels, out_channels, None,
+                  groups=resnet_groups, eps=resnet_eps) for i in range(num_layers)])
         self.upsamplers = nn.ModuleList([Upsample3D(out_channels)]) if add_upsample else None
 
     def forward(self, x):

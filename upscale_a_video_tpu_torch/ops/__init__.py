@@ -1,4 +1,4 @@
-"""Primitive ops and the five hand-written kernels of the main path.
+"""Primitive ops and the eight hand-written CUDA kernels.
 
 Each kernel module holds a plain PyTorch version beside its wrapper; the
 wrapper takes the plain version for a CPU tensor and launches the CUDA

@@ -8,7 +8,8 @@ rebuilds. Entry points are bound with ``ctypes``; each returns
 ``cudaGetLastError()`` and :func:`check` raises on anything but 0.
 
 Every wrapper adds one to its entry in :data:`LAUNCHES` when it launches its
-kernel, so a run can show which kernels the main path went through.
+kernel, so a run can show which kernels the main path went through, and
+:data:`SHAPES` counts the same launches by the shape of the call.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -33,8 +34,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17", "
               "-Xcompiler", "-fPIC", "-lineinfo"]
 
 KERNELS = ("temporal_attention_block", "fused_temporal_resblock", "cross_attention_block",
-           "fused_feedforward", "flash_attention")
+           "fused_feedforward", "flash_attention", "fused_temporal_attention",
+           "fused_group_norm", "temporal_conv")
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+SHAPES: Dict[str, Dict[Tuple, int]] = {name: {} for name in KERNELS}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -45,6 +48,9 @@ _SIGNATURES = {
     "uav_gn_partials": [_P, _P, _I, _I, _I, _I, _P],
     "uav_gn_finalize": [_P] * 5 + [_I] * 4 + [_F, _F, _P],
     "uav_temporal_conv": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "uav_fused_temporal_attention": [_P] * 5 + [_I] * 4 + [_P],
+    "uav_fused_group_norm": [_P] * 7 + [_I] * 5 + [_F, _I, _I, _P],
+    "uav_temporal_conv_bias": [_P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -119,13 +125,17 @@ def check(rc: int, name: str) -> None:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: {msg} ({rc})")
 
 
-def count(name: str) -> None:
+def count(name: str, shape: Tuple) -> None:
+    """One launch of kernel ``name``; ``shape`` is the wrapper's key of the
+    call (the operand shape and the sizes that set the kernel's work)."""
     LAUNCHES[name] += 1
+    SHAPES[name][shape] = SHAPES[name].get(shape, 0) + 1
 
 
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+        SHAPES[k].clear()
 
 
 def stream_ptr(device: torch.device) -> int:

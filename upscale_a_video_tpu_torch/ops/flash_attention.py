@@ -44,5 +44,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: fl
         qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), out.data_ptr(), qf.shape[0], sq, sk, skp,
         d, float(scale), _cuda.stream_ptr(q.device))
     _cuda.check(rc, "flash_attention")
-    _cuda.count("flash_attention")
+    _cuda.count("flash_attention", (*batch, sq, sk, d))
     return out.reshape(*batch, sq, d)

@@ -59,5 +59,5 @@ def fused_feedforward(x, ln_w, ln_b, w1, b1, w2, b2, eps: float = 1e-5,
         xf.data_ptr(), *[a.data_ptr() for a in args], out.data_ptr(), xf.numel() // c, c,
         float(eps), int(add_residual), _cuda.stream_ptr(x.device))
     _cuda.check(rc, "fused_feedforward")
-    _cuda.count("fused_feedforward")
+    _cuda.count("fused_feedforward", tuple(x.shape))
     return out

@@ -3,8 +3,9 @@ with (k,1,1) and (3,1,1) temporal convs, on the card in five launches.
 
 Replaces ``upscale_a_video_tpu/ops/fused_temporal_resblock.py::
 fused_temporal_resblock`` (Pallas K1 and K2); the CUDA kernels are in
-``csrc/fused_temporal_resblock.cu``. GroupNorm statistics reduce over
-(T, H, W, C/G) per sample, torch's 5-D GroupNorm.
+``csrc/fused_temporal_resblock.cu`` (its statistics and conv kernels are
+shared with ``fused_groupnorm`` and ``temporal_conv``). GroupNorm statistics
+reduce over (T, H, W, C/G) per sample, torch's 5-D GroupNorm.
 """
 
 from __future__ import annotations
@@ -15,8 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _cuda
-
-PIXELS = 16  # pixels per block of the conv kernel
+from .temporal_conv import PIXELS, temporal_conv_plain
 
 
 def gn_affine(x: torch.Tensor, weight, bias, groups: int, eps: float):
@@ -31,14 +31,6 @@ def gn_affine(x: torch.Tensor, weight, bias, groups: int, eps: float):
     a = (rstd[:, :, None] * w).reshape(b, c)
     d = (bias.float().reshape(groups, c // groups) - (mean * rstd)[:, :, None] * w).reshape(b, c)
     return a, d
-
-
-def temporal_conv_plain(x: torch.Tensor, weight, bias) -> torch.Tensor:
-    """(B, T, H, W, Ci) × torch Conv3d weight (Co, Ci, k, 1, 1) → (B, T, H, W, Co)."""
-    k = weight.shape[2]
-    y = F.conv3d(x.permute(0, 4, 1, 2, 3), weight.to(x.dtype), bias.to(x.dtype),
-                 padding=((k - 1) // 2, 0, 0))
-    return y.permute(0, 2, 3, 4, 1)
 
 
 def fused_temporal_resblock_plain(x, n1_w, n1_b, w1, b1, temb_proj, n2_w, n2_b, w2, b2,
@@ -124,5 +116,5 @@ def fused_temporal_resblock(x, n1_w, n1_b, w1, b1, temb_proj, n2_w, n2_b, w2, b2
                                       w2t.data_ptr(), w2t.shape[0], b2t.data_ptr(), None,
                                       xf.data_ptr(), out.data_ptr(), None, b, t, hw, c, stream),
                 "temporal_conv (K2)")
-    _cuda.count("fused_temporal_resblock")
+    _cuda.count("fused_temporal_resblock", (b, t, hh, ww, c, w1.shape[2]))
     return out

@@ -14,16 +14,8 @@ import torch.nn.functional as F
 
 from . import _cuda
 from .fused_feedforward import layer_norm
+from .fused_temporal_attention import temporal_attention_plain
 from .rope import apply_rotary, rotary_tables
-
-
-def temporal_attention_plain(q, k, v, bias_htt):
-    """q/k/v: (B', T, H, D) with RoPE applied → (B', T, H, D); softmax over
-    the T keys of each (row, head, query) with the (H, T, T) bias."""
-    scores = torch.einsum("bihd,bjhd->bhij", q.float(), k.float()) + bias_htt[None].float()
-    scores = scores - scores.amax(dim=-1, keepdim=True)
-    probs = torch.softmax(scores, dim=-1).to(v.dtype)
-    return torch.einsum("bhij,bjhd->bihd", probs.float(), v.float()).to(q.dtype)
 
 
 def temporal_attention_block_plain(x, ln_w, ln_b, wq, wk, wv, wo, bo, bias_htt,
@@ -102,5 +94,5 @@ def fused_temporal_attention_block(x, ln_w, ln_b, wq, wk, wv, wo, bo, bias_htt, 
         sin.data_ptr(), out.data_ptr(), bt // t, t, s, c, heads, rot, r, float(eps),
         int(add_residual), _cuda.stream_ptr(x.device))
     _cuda.check(rc, "temporal_attention_block")
-    _cuda.count("temporal_attention_block")
+    _cuda.count("temporal_attention_block", (bt, s, c, t))
     return out

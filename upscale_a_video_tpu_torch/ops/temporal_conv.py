@@ -1,0 +1,63 @@
+"""SAME-T (k,1,1) temporal convolution with bias on channels-last
+(B, T, H, W, C) video, as k frame-shifted GEMMs.
+
+Replaces ``upscale_a_video_tpu/ops/temporal_conv.py::temporal_conv`` (Pallas
+``_kernel``; oracle ``_conv_reference``); the CUDA kernel is
+``csrc/temporal_conv.cu``, whose tile code the temporal resblock shares. As
+in the JAX package it is wired into no model: ``nn.blocks.TemporalConv``
+stays on PyTorch's own conv. The port keeps torch's Conv3d weight layout
+(Cout, Cin, k, 1, 1); the JAX function takes DHWIO (k, 1, 1, Cin, Cout).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from . import _cuda
+
+PIXELS = 16      # pixels per block of the kernel
+MAX_T = 8        # one fp32 accumulator tile per frame
+SMEM_ROWS = 6144  # T * Cin bf16 rows of 16 pixels that fit the block's shared memory
+
+
+def temporal_conv_plain(x: torch.Tensor, weight: torch.Tensor,
+                        bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(B, T, H, W, Ci) × torch Conv3d weight (Co, Ci, k, 1, 1) → (B, T, H, W, Co)."""
+    k = weight.shape[2]
+    y = F.conv3d(x.permute(0, 4, 1, 2, 3), weight.to(x.dtype),
+                 None if bias is None else bias.to(x.dtype), padding=((k - 1) // 2, 0, 0))
+    return y.permute(0, 2, 3, 4, 1)
+
+
+def temporal_conv_fits(x: torch.Tensor, weight: torch.Tensor) -> bool:
+    b, t, h, w, cin = x.shape
+    cout, wcin, k, kh, kw = weight.shape
+    return (x.dtype == torch.bfloat16 and wcin == cin and (kh, kw) == (1, 1) and k % 2 == 1
+            and 1 <= t <= MAX_T and (h * w) % PIXELS == 0 and cin % 16 == 0
+            and cout % 16 == 0 and t * cin <= SMEM_ROWS)
+
+
+def temporal_conv(x: torch.Tensor, weight: torch.Tensor,
+                  bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x: (B, T, H, W, Cin); weight: (Cout, Cin, k, 1, 1); bias: (Cout,) or
+    None. Returns (B, T, H, W, Cout) in x.dtype."""
+    if not x.is_cuda:
+        return temporal_conv_plain(x, weight, bias)
+    if not temporal_conv_fits(x, weight):
+        raise ValueError(f"temporal_conv: unsupported x {tuple(x.shape)} {x.dtype}, "
+                         f"weight {tuple(weight.shape)}")
+    b, t, h, w, cin = x.shape
+    cout, k = weight.shape[0], weight.shape[2]
+    xf = _cuda.operand(x, torch.bfloat16, "x")
+    taps = _cuda.operand(weight[..., 0, 0].permute(2, 0, 1), torch.bfloat16, "weight")
+    bf = None if bias is None else _cuda.operand(bias, torch.bfloat16, "bias")
+    out = torch.empty(b, t, h, w, cout, device=x.device, dtype=torch.bfloat16)
+    rc = _cuda.lib().uav_temporal_conv_bias(
+        xf.data_ptr(), taps.data_ptr(), k, _cuda.ptr(bf), out.data_ptr(), b, t, h * w, cin, cout,
+        _cuda.stream_ptr(x.device))
+    _cuda.check(rc, "temporal_conv")
+    _cuda.count("temporal_conv", (b, t, h, w, cin, k))
+    return out

@@ -1,5 +1,6 @@
 """VideoUpscalePipeline: CLIP prompt encoding → LR noising → windowed CFG
-DDIM denoise with the split step → chunked fp32 VAE decode.
+DDIM denoise with the split step → chunked fp32 VAE decode (conditioned on
+the fp32 LR frames with weight ``w_lr`` when the VAE is the video VAE).
 
 Mirror of ``upscale_a_video_tpu/pipeline/pipeline.py`` (``__call__`` at
 ``:497-597``) without its TPU execution machinery: the steps are a Python
@@ -101,13 +102,20 @@ class VideoUpscalePipeline:
 
     # ----------------------------------------------------------- decode
     @torch.no_grad()
-    def decode_latents(self, latents: torch.Tensor) -> torch.Tensor:
-        """Chunked decode (ref :683-702), clipped to [-1, 1]."""
+    def decode_latents(self, latents: torch.Tensor, image_dec: Optional[torch.Tensor] = None,
+                       w_lr: float = 1.0) -> torch.Tensor:
+        """Chunked decode (ref :683-702), clipped to [-1, 1]. A VAE that is
+        conditioned on the LR frames takes the matching frames of
+        ``image_dec`` (B, T, H, W, 3) with weight ``w_lr``."""
         vae = self.m.vae
+        cond = vae.config.condition_img
+        if cond and image_dec is None:
+            raise ValueError("the VAE is conditioned on the LR frames: pass image_dec")
         outs = []
         for s, e in chunk_starts(latents.shape[1], self.DECODE_CHUNK):
             z = latents[:, s:e] / vae.config.scaling_factor
-            outs.append(vae.decode(z).float().clamp(-1.0, 1.0))
+            img = image_dec[:, s:e] if cond else None
+            outs.append(vae.decode(z, img, w_lr).float().clamp(-1.0, 1.0))
         return torch.cat(outs, dim=1)
 
     def check_inputs(self, prompt, image, noise_level, negative_prompt):
@@ -125,8 +133,10 @@ class VideoUpscalePipeline:
     @torch.no_grad()
     def __call__(self, prompt, image, num_inference_steps: int = 30,
                  guidance_scale: float = 6.0, noise_level: int = 120, negative_prompt=None,
-                 generator: Optional[torch.Generator] = None, latents=None, lr_noise=None):
-        """image: (B, T, H, W, 3) in [-1, 1] → (B, T, 4H, 4W, 3) fp32 in [-1, 1]."""
+                 generator: Optional[torch.Generator] = None, latents=None, lr_noise=None,
+                 w_lr: float = 1.0):
+        """image: (B, T, H, W, 3) in [-1, 1] → (B, T, 4H, 4W, 3) fp32 in [-1, 1].
+        ``w_lr`` weighs the LR-frame condition of a video VAE's decoder."""
         self.check_inputs(prompt, image, noise_level, negative_prompt)
         prompt = [prompt] if isinstance(prompt, str) else prompt
         if isinstance(negative_prompt, str):
@@ -135,6 +145,7 @@ class VideoUpscalePipeline:
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(10)
         image = torch.as_tensor(image, device=dev).float()
+        image_dec = image  # fp32 LR frames for the decoder's condition (ref :542)
         b, t, h, w, _ = image.shape
         do_cfg = guidance_scale > 1.0
         prompt_embeds = self.encode_prompt(prompt, negative_prompt, do_cfg)
@@ -162,7 +173,7 @@ class VideoUpscalePipeline:
                 pred = uncond + guidance_scale * (cond - uncond)
             x0 = sched.step_v0(pred, tstep, lat)
             lat = sched.step_vt(x0, pred, tstep, lat, num_inference_steps)
-        return self.decode_latents(lat)
+        return self.decode_latents(lat, image_dec, w_lr)
 
 
 def random_pipeline(device=None, seed: int = 0, unet_config: UNetVideoConfig = UNetVideoConfig(),
@@ -173,7 +184,8 @@ def random_pipeline(device=None, seed: int = 0, unet_config: UNetVideoConfig = U
     """The main path as ``bench.py:build_pipeline`` drives the reference, with
     random weights drawn on the target device from a seeded generator: UNet
     and CLIP in ``dtype``, the VAE in ``decode_dtype``, DDIM with scaled-linear
-    betas and a DDPM low-res scheduler, the fixed-token tokenizer."""
+    betas and a DDPM low-res scheduler, the fixed-token tokenizer.
+    ``vae_config=VIDEO_VAE`` gives the README's video-VAE configuration."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
 
