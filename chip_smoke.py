@@ -10,13 +10,17 @@ Phases (each announced on a flushed line with the seconds elapsed):
   2. build    the eight CUDA kernels, one nvcc call, into
               upscale_a_video_tpu_torch/_build/ (skipped when already built).
   3. kernels  each kernel against its plain PyTorch version at every shape
-              the two paths give it (plus flash at the flagship's UNet shape,
-              and the GroupNorm and temporal conv, which no path runs, at the
-              shapes of the sites they would serve): error, time, plain time,
-              PyTorch library time where one call computes the same function,
-              and the card's bound. Each path below fails if it launched a
-              kernel at a shape this phase did not check (the wrappers count
-              launches by shape, ``_cuda.SHAPES``).
+              the two paths give it (plus flash at the flagship's UNet shape
+              and at one shape of each head width it is built for, and the
+              GroupNorm and temporal conv, which no path runs, at the shapes
+              of the sites they would serve: the conv at every resblock conv
+              of both paths, with the site's k and with k = 3): error, time,
+              plain time, PyTorch library time where one call computes the
+              same function, and the card's bound; for the TMA + wgmma
+              kernels (flash, temporal conv) and their library calls also
+              the GPU time alone, replayed from a CUDA graph. Each path below
+              fails if it launched a kernel at a shape this phase did not
+              check (the wrappers count launches by shape, ``_cuda.SHAPES``).
   4. path 1   the 3D-VAE configuration: one full-width UNet forward at the
               slice shape with the kernels and then with the plain versions,
               same weights; then VideoUpscalePipeline at released width on a
@@ -30,7 +34,8 @@ Phases (each announced on a flushed line with the seconds elapsed):
               conditioned on the LR frames (w_lr 1.0), then the Wavelet colour
               fix. Every temporal attention must go through the fused temporal
               attention (480 launches), none through the whole-block kernel.
-              The decode alone with the kernels against the plain decode
+              The same call with the colour fix on the plain versions (timed),
+              the decode alone with the kernels against the plain decode
               (relative L2 gate), and a 2-step pair against the plain
               versions.
 
@@ -41,6 +46,7 @@ kernels' JSON record and the card's ``nvidia-smi`` name and power limit.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -89,6 +95,17 @@ RESBLOCK_P1 = ((4, 8, 64, 64, 256, 5), (4, 8, 64, 64, 512, 5), (2, 8, 32, 32, 25
 RESBLOCK_P2 = ((2, 5, 96, 160, 256, 5), (2, 5, 96, 160, 512, 5), (1, 5, 48, 80, 256, 5),
                (2, 5, 48, 80, 512, 5), (2, 5, 48, 80, 512, 3), (2, 5, 24, 40, 512, 5),
                (2, 5, 24, 40, 512, 3), (2, 5, 12, 20, 512, 5))
+# the temporal conv's shapes (B, T, H, W, Cin, Cout, k): every resblock conv
+# of both paths, conv1 with the site's k and conv2's k = 3 (the resblock's
+# conv is this conv)
+CONV_SITES = tuple(dict.fromkeys((*site[:5], site[4], k) for site in RESBLOCK_P1 + RESBLOCK_P2
+                                 for k in (site[5], 3)))
+# shapes no path gives a kernel, one for each of its built variants: flash at
+# each head width (64, 128 and 256; 80 and 384 run padded to 128 and 512,
+# key counts not a multiple of any tile); the conv at T > 8, Cin = 1024 !=
+# Cout and a frame of 300 pixels (ragged rows and channel tiles)
+FLASH_WIDTHS = ((1, 4, 1000, 64), (1, 4, 1000, 80), (1, 2, 700, 256), (1, 1, 600, 384))
+CONV_WIDE = (2, 12, 15, 20, 1024, 320, 5)
 PATH1_KERNELS = ("temporal_attention_block", "fused_temporal_resblock", "cross_attention_block",
                  "fused_feedforward", "flash_attention")
 PATH2_KERNELS = ("fused_temporal_attention", "fused_temporal_resblock", "cross_attention_block",
@@ -159,6 +176,21 @@ class Inputs:
         return self.normal(c, scale=0.1) + 1, self.normal(c, scale=0.1)
 
 
+def graph_ms(fn, calls: int = 20) -> float:
+    """GPU time per call of ``fn`` replayed from a CUDA graph: the call's
+    device work without the host's launch work."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()  # warm-up on a side stream, as graph capture wants
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return cuda_ms(graph.replay, reps=5) / calls
+
+
 def bound_ms(nbytes: float, flops: float, peak: float = PEAK_FLOPS):
     t_b, t_f = nbytes / PEAK_BYTES, flops / peak
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
@@ -174,7 +206,10 @@ def taps(k: int, t: int) -> int:
     return sum(min(t, f + k // 2 + 1) - max(0, f - k // 2) for f in range(t))
 
 
-def compare(name, shape, kern, plain, nbytes_, flops, library=None, peak=PEAK_FLOPS):
+def compare(name, shape, kern, plain, nbytes_, flops, library=None, peak=PEAK_FLOPS,
+            graphs=False):
+    """Check ``kern`` against ``plain`` and time both (and ``library``);
+    with ``graphs``, also the kernel's and the library's GPU time alone."""
     out, ref = kern(), plain()
     torch.cuda.synchronize()
     if out.shape != ref.shape or not torch.isfinite(out.float()).all():
@@ -186,6 +221,9 @@ def compare(name, shape, kern, plain, nbytes_, flops, library=None, peak=PEAK_FL
     b_ms, b_by = bound_ms(nbytes_, flops, peak)
     rec = dict(name=name, shape=shape, max_abs_err=err, rel_err=rel, tol=KERNEL_TOL, ms=ms,
                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+    if graphs:
+        rec.update(graph_ms=graph_ms(kern),
+                   library_graph_ms=graph_ms(library) if library is not None else None)
     log(json.dumps(rec))
     if not rel <= KERNEL_TOL:
         raise AssertionError(f"{name} {shape}: kernel disagrees with its plain version "
@@ -262,10 +300,10 @@ def check_kernels():
             lambda: fused_feedforward_plain(*args, 1e-5, True),
             nbytes(x, x, lw, lb, w1, b1, w2, b2), float(bt) * s * 24 * c * c))
     # 5. flash attention: the VAE mid block (d = 512) in 3- and 2-frame decode
-    # chunks, at path 1's 64x64 and path 2's 96x160 latent, and the
-    # flagship's C = 1024 UNet self-attention (40x40 latent)
+    # chunks, at path 1's 64x64 and path 2's 96x160 latent, the flagship's
+    # C = 1024 UNet self-attention (40x40 latent), and the other widths
     for bsz, h, s, d in ((3, 1, 4096, 512), (2, 1, 4096, 512), (3, 1, 15360, 512),
-                         (2, 1, 15360, 512), (1, 8, 1600, 128)):
+                         (2, 1, 15360, 512), (1, 8, 1600, 128)) + FLASH_WIDTHS:
         q, k, v = (inp.normal(bsz, h, s, d) for _ in range(3))
         scale = d ** -0.5
         recs.append(compare(
@@ -273,7 +311,7 @@ def check_kernels():
             lambda: flash_attention(q, k, v, scale),
             lambda: attention_plain(q, k, v, scale),
             nbytes(q, k, v, q), 4.0 * bsz * h * s * s * d,
-            library=lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)))
+            library=lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), graphs=True))
     # 6. fused temporal attention: path 2's UNet levels 1-3 (T = 5, CFG rows
     # B = 2: B' = 2 * 48*80, 2 * 24*40, 2 * 12*20), and T = 8 at B' = 2048
     for bp, t, h, d in ((7680, 5, 8, 64), (1920, 5, 8, 64), (480, 5, 8, 128), (2048, 8, 8, 64)):
@@ -308,17 +346,19 @@ def check_kernels():
                 nbytes(x, gw, gb, x), (8.0 if act else 5.0) * x.numel(),
                 library=(lambda: F.group_norm(xc, 32, gw, gb, 1e-6)) if act is None else None,
                 peak=peak))
-    # 8. temporal conv: the (k,1,1) temporal convs of path 1's resblocks
-    for (batch, t, hh, ww, c, k) in RESBLOCK_P1:
-        x = inp.normal(batch, t, hh, ww, c)
-        w = inp.weight(c, c, k, 1, 1, fan_in=c * k)
-        b = inp.normal(c, scale=0.1)
+    # 8. temporal conv: every (k,1,1) conv of both paths' resblocks, and one
+    # shape of the wider gate
+    for (batch, t, hh, ww, cin, cout, k) in CONV_SITES + (CONV_WIDE,):
+        x = inp.normal(batch, t, hh, ww, cin)
+        w = inp.weight(cout, cin, k, 1, 1, fan_in=cin * k)
+        b = inp.normal(cout, scale=0.1)
+        y = torch.empty(batch, t, hh, ww, cout, device="cuda", dtype=torch.bfloat16)
         xc = x.permute(0, 4, 1, 2, 3)  # channels-last 3-D view of the same memory
         recs.append(compare(
-            "temporal_conv", [batch, t, hh, ww, c, k],
+            "temporal_conv", [batch, t, hh, ww, cin, cout, k],
             lambda: temporal_conv(x, w, b), lambda: temporal_conv_plain(x, w, b),
-            nbytes(x, w, b, x), 2.0 * batch * hh * ww * c * c * taps(k, t),
-            library=lambda: F.conv3d(xc, w, b, padding=(k // 2, 0, 0))))
+            nbytes(x, w, b, y), 2.0 * batch * hh * ww * cin * cout * taps(k, t),
+            library=lambda: F.conv3d(xc, w, b, padding=(k // 2, 0, 0)), graphs=True))
     return recs
 
 
@@ -456,6 +496,19 @@ def run_path2(pipe, card: str, checked):
         raise AssertionError("path 2 must run its 16 temporal attentions per step through the "
                              "fused temporal attention and none through the whole-block kernel")
 
+    # the same call and colour fix on the plain PyTorch versions, for the
+    # kernels' end-to-end effect (reported, not gated, as on path 1)
+    with _cuda.plain_path():
+        torch.cuda.synchronize()
+        t0 = time.time()
+        ref = run(STEPS)
+        ref_fixed = apply_color_fix("Wavelet", ref[0], image[0])[None]
+        torch.cuda.synchronize()
+        plain_secs = time.time() - t0
+    log(f"path 2 e2e plain versions: {plain_secs:.2f} s: {FRAMES2 / plain_secs:.4f} frames/s; "
+        f"mean/std kernels {fixed.mean().item():.4f}/{fixed.std().item():.4f}, plain "
+        f"{ref_fixed.mean().item():.4f}/{ref_fixed.std().item():.4f}")
+
     # the decode alone on latents of the same shape: its time, and the decode
     # with the kernels (flash in the mid block) against the plain decode
     lat = torch.randn((1, FRAMES2, H2, W2, 4), generator=g, device="cuda")
@@ -482,7 +535,8 @@ def run_path2(pipe, card: str, checked):
     log(f"path 2, 2 steps: |kernels - plain| max {(out2 - ref2).abs().max().item():.4f} mean "
         f"{(out2 - ref2).abs().mean().item():.5f}")
     return dict(launches=launches, launches_by_shape=shapes, seconds=secs,
-                pipeline_seconds=pipe_secs, decode_seconds=decode_secs, decode_rel_l2=dec_rel,
+                pipeline_seconds=pipe_secs, plain_seconds=plain_secs,
+                decode_seconds=decode_secs, decode_rel_l2=dec_rel,
                 frames=FRAMES2, frames_per_s=fps,
                 peak_gib=peak / 2**30)
 
@@ -501,10 +555,23 @@ def main() -> int:
         f"{torch.backends.cuda.matmul.allow_tf32} cudnn={torch.backends.cudnn.allow_tf32}")
 
     phase("build")
+    os.makedirs("chiprun_out", exist_ok=True)
     t0 = time.time()
-    path = _cuda.build(verbose=True)
+    try:
+        with open("chiprun_out/nvcc_build.log", "w") as f, contextlib.redirect_stdout(f):
+            path = _cuda.build(verbose=True)
+    except RuntimeError:
+        with open("chiprun_out/nvcc_build.log") as f:
+            print(f.read()[-8000:], file=sys.stderr)
+        raise
     _cuda.lib()
-    log(f"built {path.name} in {time.time() - t0:.1f} s")
+    build_secs = time.time() - t0
+    log(f"built {path.name} in {build_secs:.1f} s (nvcc and ptxas -v output in "
+        f"chiprun_out/nvcc_build.log)")
+    with open("chiprun_out/nvcc_build.log") as f:
+        for line in f:  # register spills and serialized wgmma, the ptxas lines that cost time
+            if ("spill" in line and " 0 bytes spill stores" not in line) or "Performance" in line:
+                log(f"ptxas: {line.strip()[:200]}")
 
     phase("kernels")
     recs = check_kernels()
@@ -535,9 +602,9 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     paths = {"path1": path1, "path2": path2}
-    os.makedirs("chiprun_out", exist_ok=True)
     with open("chiprun_out/chip_smoke_kernels.json", "w") as f:
-        json.dump({"card": card, "steps": STEPS, "paths": paths, "kernels": recs}, f, indent=1)
+        json.dump({"card": card, "steps": STEPS, "build_seconds": build_secs, "paths": paths,
+                   "kernels": recs}, f, indent=1)
     main_shape = {}
     for r in recs:  # the largest slice shape of each kernel stands for it
         if r["name"] not in main_shape or r["bound_ms"] > main_shape[r["name"]]["bound_ms"]:
@@ -552,7 +619,7 @@ def main() -> int:
                             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                             bound_by=r["bound_by"], library_ms=r["library_ms"],
                             shape=r["shape"]))
-    phase("done")
+    phase(f"done (build {build_secs:.1f} s, whole script {time.time() - T0:.1f} s)")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -184,6 +184,25 @@ def test_temporal_conv_plain(k, with_bias):
     close(want, got, 2e-5)
 
 
+@pytest.mark.parametrize("b,t,h,w,cin,cout,k", [
+    (1, 9, 3, 5, 32, 48, 3),    # T > 8, a 15-pixel frame, Cout > Cin
+    (2, 11, 5, 3, 48, 16, 5),   # T > 8, Cout < Cin
+    (1, 12, 7, 7, 64, 32, 5),   # a 49-pixel frame
+])
+def test_temporal_conv_plain_at_newly_admitted_shapes(b, t, h, w, cin, cout, k):
+    """Shapes the TMA kernel's gate admits and the earlier one refused."""
+    rng = np.random.default_rng(b * 100 + t)
+    x = rand(rng, b, t, h, w, cin)
+    wt = rand(rng, k, 1, 1, cin, cout, scale=(k * cin) ** -0.5)  # DHWIO
+    bias = rand(rng, cout, scale=0.1)
+    want = j_tc.temporal_conv(x, wt, bias, use_pallas=False)
+    got = t_tc.temporal_conv(T(x), T(wt).permute(4, 3, 0, 1, 2), T(bias))
+    assert got.shape == (b, t, h, w, cout)
+    assert t_tc.temporal_conv_fits(T(x).to(torch.bfloat16),
+                                   T(wt).permute(4, 3, 0, 1, 2).to(torch.bfloat16))
+    close(want, got, 2e-5)
+
+
 def test_temporal_conv_gate():
     bf = dict(dtype=torch.bfloat16, device="meta")
     for b, hw, c, k in ((4, 64, 256, 5), (2, 64, 256, 5), (4, 32, 512, 5), (4, 16, 512, 5),
@@ -194,10 +213,34 @@ def test_temporal_conv_gate():
     assert t_tc.temporal_conv_fits(x, torch.empty(48, 32, 3, 1, 1, **bf))
     assert not t_tc.temporal_conv_fits(x, torch.empty(48, 32, 3, 3, 3, **bf))
     assert not t_tc.temporal_conv_fits(x, torch.empty(48, 32, 2, 1, 1, **bf))
-    assert not t_tc.temporal_conv_fits(torch.empty(1, 9, 4, 4, 32, **bf),
-                                       torch.empty(32, 32, 3, 1, 1, **bf))
-    assert not t_tc.temporal_conv_fits(torch.empty(1, 8, 3, 3, 32, **bf),
-                                       torch.empty(32, 32, 3, 1, 1, **bf))
+    # no limit on T or on the frame size: both were refused before the TMA kernel
+    assert t_tc.temporal_conv_fits(torch.empty(1, 9, 4, 4, 32, **bf),
+                                   torch.empty(32, 32, 3, 1, 1, **bf))
+    assert t_tc.temporal_conv_fits(torch.empty(1, 8, 3, 3, 32, **bf),
+                                   torch.empty(32, 32, 3, 1, 1, **bf))
+    # Cin = 1024 (the UNet's widest level) and T = 32 (the flagship clip)
+    assert t_tc.temporal_conv_fits(torch.empty(1, 32, 10, 10, 1024, **bf),
+                                   torch.empty(1024, 1024, 3, 1, 1, **bf))
+    # TMA needs 16-byte rows: channels a multiple of 16; bf16 only
+    assert not t_tc.temporal_conv_fits(torch.empty(1, 8, 4, 4, 40, **bf),
+                                       torch.empty(48, 40, 3, 1, 1, **bf))
+    assert not t_tc.temporal_conv_fits(x, torch.empty(40, 32, 3, 1, 1, **bf))
+    assert not t_tc.temporal_conv_fits(torch.empty(1, 8, 4, 4, 32, device="meta"),
+                                       torch.empty(48, 32, 3, 1, 1, device="meta"))
+
+
+def test_temporal_conv_gate_admits_every_resblock_conv():
+    """The card check holds the conv at each resblock conv of both paths,
+    with the site's k and with conv2's k = 3; the gate admits every one."""
+    import chip_smoke
+
+    sites = chip_smoke.RESBLOCK_P1 + chip_smoke.RESBLOCK_P2
+    want = {(*s[:5], s[4], k) for s in sites for k in (s[5], 3)}
+    assert set(chip_smoke.CONV_SITES) == want and len(chip_smoke.CONV_SITES) == len(want)
+    bf = dict(dtype=torch.bfloat16, device="meta")
+    for (b, t, h, w, cin, cout, k) in chip_smoke.CONV_SITES + (chip_smoke.CONV_WIDE,):
+        assert t_tc.temporal_conv_fits(torch.empty(b, t, h, w, cin, **bf),
+                                       torch.empty(cout, cin, k, 1, 1, **bf))
 
 
 def test_cpu_calls_take_the_plain_version_and_count_no_launch():
@@ -211,7 +254,7 @@ def test_cpu_calls_take_the_plain_version_and_count_no_launch():
     assert all(_cuda.LAUNCHES[n] == 0 and not _cuda.SHAPES[n] for n in names)
     assert {p.name for p in _cuda.sources()} >= {
         "fused_temporal_attention.cu", "fused_groupnorm.cu", "temporal_conv.cu",
-        "group_norm.cuh", "temporal_conv.cuh"}
+        "group_norm.cuh", "temporal_conv.cuh", "hopper.cuh"}
 
 
 def test_launches_are_counted_by_shape():

@@ -277,6 +277,27 @@ def test_flash_attention_plain_on_cpu():
     close(j_attn.attention_xla(q, k, v, 0.125), flash_attention(T(q), T(k), T(v), 0.125), 1e-5)
 
 
+@pytest.mark.parametrize("d", [128, 512, 80])
+def test_attention_plain_matches_xla_at_flash_widths(d):
+    """The flash kernel's plain version against its oracle at the widths the
+    kernel runs (128, 512) and one it pads (80 -> 128), with key counts that
+    are a multiple of no key tile (32, 64, 128)."""
+    rng = np.random.default_rng(d)
+    q, k, v = rand(rng, 2, 37, d), rand(rng, 2, 75, d), rand(rng, 2, 75, d)
+    want = j_attn.attention_xla(q, k, v, d ** -0.5)
+    close(want, t_attn.attention_plain(T(q), T(k), T(v), d ** -0.5), 1e-5)
+
+
+def test_flash_kernel_widths():
+    """Each head_dim the gate admits runs at one of the widths the kernel is
+    built for, zero-padded up to it."""
+    from upscale_a_video_tpu_torch.ops.flash_attention import WIDTHS, kernel_width
+
+    assert WIDTHS == (64, 128, 256, 512)
+    assert [kernel_width(d) for d in (16, 64, 80, 128, 144, 256, 384, 512)] == [
+        64, 64, 128, 128, 256, 256, 512, 512]
+
+
 def test_port_gates_cover_the_slice_shapes():
     """The Hopper gates admit every shape the released config gives each
     kernel at the 64x64-latent slice (bf16 tensors on the meta device)."""
@@ -307,4 +328,4 @@ def test_build_is_keyed_by_source_hash():
     assert path.parent.name == "_build" and _cuda.source_hash() in path.name
     assert {p.name for p in _cuda.sources()} >= {
         "flash_attention.cu", "temporal_attention_block.cu", "cross_attention_block.cu",
-        "fused_feedforward.cu", "fused_temporal_resblock.cu", "common.cuh"}
+        "fused_feedforward.cu", "fused_temporal_resblock.cu", "common.cuh", "hopper.cuh"}

@@ -1,11 +1,12 @@
 // Shared device helpers for the port's Hopper kernels.
 //
-// Every kernel here is "simple and right" first: one thread block (8 warps)
-// per row tile, operands staged in shared memory, products on the tensor
-// cores through WMMA 16x16x16 bf16 fragments with fp32 accumulation, and all
-// normalisation / softmax arithmetic in fp32. Weights are read as WMMA
-// operands straight from global memory; every block reads the same weights,
-// so after the first blocks they come from L2.
+// The kernels of the first design are "simple and right" first: one thread
+// block (8 warps) per row tile, operands staged in shared memory, products on
+// the tensor cores through WMMA 16x16x16 bf16 fragments with fp32
+// accumulation, and all normalisation / softmax arithmetic in fp32. Weights
+// are read as WMMA operands straight from global memory; every block reads
+// the same weights, so after the first blocks they come from L2. The
+// redesigned kernels (TMA + wgmma) add hopper.cuh.
 #pragma once
 
 #include <cuda_bf16.h>

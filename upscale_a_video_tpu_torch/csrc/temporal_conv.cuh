@@ -1,7 +1,9 @@
 // The (k,1,1) temporal convolution on channels-last (B, T, H*W, C) bf16 video
-// as k frame-shifted GEMMs, shared by the temporal resblock
+// as k frame-shifted GEMMs: the conv of the temporal resblock
 // (csrc/fused_temporal_resblock.cu, both convs with a GroupNorm + SiLU
-// prologue) and the standalone temporal conv (csrc/temporal_conv.cu).
+// prologue). The standalone temporal conv (csrc/temporal_conv.cu) no longer
+// uses it: that one is an implicit GEMM on TMA + wgmma, the core the
+// resblock is to move to.
 //
 // Design: one block per (sample, 16 pixels) holds those pixels of all T frames
 // (T*16 x Cin bf16) in shared memory, after the optional prologue

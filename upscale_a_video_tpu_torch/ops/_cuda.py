@@ -41,7 +41,7 @@ SHAPES: Dict[str, Dict[Tuple, int]] = {name: {} for name in KERNELS}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "uav_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "uav_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "uav_temporal_attention_block": [_P] * 12 + [_I] * 7 + [_F, _I, _P],
     "uav_cross_attention_block": [_P] * 7 + [_I] * 6 + [_F, _I, _P],
     "uav_fused_feedforward": [_P] * 8 + [_I, _I, _F, _I, _P],
@@ -157,6 +157,17 @@ def operand(t: torch.Tensor, dtype: torch.dtype, name: str) -> torch.Tensor:
     t = t.contiguous()
     if t.data_ptr() % 32:
         t = t.clone()
+    return t
+
+
+def tma_operand(t: torch.Tensor, name: str) -> torch.Tensor:
+    """A bf16 operand that a kernel reads through a TMA tensor map: as
+    :func:`operand`, and its rows a multiple of 16 bytes (the map's strides
+    must be). Raises otherwise."""
+    t = operand(t, torch.bfloat16, name)
+    if t.data_ptr() % 16 or (t.shape[-1] * t.element_size()) % 16:
+        raise ValueError(f"{name}: TMA needs a 16-byte-aligned base and row stride, got "
+                         f"shape {tuple(t.shape)} at {t.data_ptr():#x}")
     return t
 
 

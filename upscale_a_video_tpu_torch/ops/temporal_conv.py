@@ -3,7 +3,7 @@
 
 Replaces ``upscale_a_video_tpu/ops/temporal_conv.py::temporal_conv`` (Pallas
 ``_kernel``; oracle ``_conv_reference``); the CUDA kernel is
-``csrc/temporal_conv.cu``, whose tile code the temporal resblock shares. As
+``csrc/temporal_conv.cu``, an implicit GEMM on TMA-fed ``wgmma`` tiles. As
 in the JAX package it is wired into no model: ``nn.blocks.TemporalConv``
 stays on PyTorch's own conv. The port keeps torch's Conv3d weight layout
 (Cout, Cin, k, 1, 1); the JAX function takes DHWIO (k, 1, 1, Cin, Cout).
@@ -18,9 +18,7 @@ import torch.nn.functional as F
 
 from . import _cuda
 
-PIXELS = 16      # pixels per block of the kernel
-MAX_T = 8        # one fp32 accumulator tile per frame
-SMEM_ROWS = 6144  # T * Cin bf16 rows of 16 pixels that fit the block's shared memory
+PIXELS = 16  # pixels per block of the temporal resblock's conv (csrc/temporal_conv.cuh)
 
 
 def temporal_conv_plain(x: torch.Tensor, weight: torch.Tensor,
@@ -33,11 +31,13 @@ def temporal_conv_plain(x: torch.Tensor, weight: torch.Tensor,
 
 
 def temporal_conv_fits(x: torch.Tensor, weight: torch.Tensor) -> bool:
-    b, t, h, w, cin = x.shape
+    """bf16, an odd (k,1,1) kernel, Cin and Cout multiples of 16 (TMA needs
+    16-byte row strides). Any T and any frame size: ragged tiles are TMA's
+    zero fill on load and masked on store."""
+    cin = x.shape[-1]
     cout, wcin, k, kh, kw = weight.shape
-    return (x.dtype == torch.bfloat16 and wcin == cin and (kh, kw) == (1, 1) and k % 2 == 1
-            and 1 <= t <= MAX_T and (h * w) % PIXELS == 0 and cin % 16 == 0
-            and cout % 16 == 0 and t * cin <= SMEM_ROWS)
+    return (x.dtype == torch.bfloat16 and x.dim() == 5 and wcin == cin and (kh, kw) == (1, 1)
+            and k % 2 == 1 and cin % 16 == 0 and cout % 16 == 0)
 
 
 def temporal_conv(x: torch.Tensor, weight: torch.Tensor,
@@ -51,8 +51,8 @@ def temporal_conv(x: torch.Tensor, weight: torch.Tensor,
                          f"weight {tuple(weight.shape)}")
     b, t, h, w, cin = x.shape
     cout, k = weight.shape[0], weight.shape[2]
-    xf = _cuda.operand(x, torch.bfloat16, "x")
-    taps = _cuda.operand(weight[..., 0, 0].permute(2, 0, 1), torch.bfloat16, "weight")
+    xf = _cuda.tma_operand(x, "x")
+    taps = _cuda.tma_operand(weight[..., 0, 0].permute(2, 0, 1), "weight")
     bf = None if bias is None else _cuda.operand(bias, torch.bfloat16, "bias")
     out = torch.empty(b, t, h, w, cout, device=x.device, dtype=torch.bfloat16)
     rc = _cuda.lib().uav_temporal_conv_bias(
