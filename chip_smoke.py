@@ -17,17 +17,21 @@ Phases (each announced on a flushed line with the seconds elapsed):
               of both paths, with the site's k and with k = 3): error, time,
               plain time, PyTorch library time where one call computes the
               same function, and the card's bound; for the TMA + wgmma
-              kernels (flash, temporal conv) and their library calls also
-              the GPU time alone, replayed from a CUDA graph. Each path below
-              fails if it launched a kernel at a shape this phase did not
-              check (the wrappers count launches by shape, ``_cuda.SHAPES``).
+              kernels (flash, temporal conv, temporal resblock,
+              feed-forward) and their library calls also the GPU time
+              alone, replayed from a CUDA graph. Each path below fails if it
+              launched a kernel at a shape this phase did not check (the
+              wrappers count launches by shape, ``_cuda.SHAPES``); after both
+              paths, each path's launches times these per-call times give
+              its kernels' seconds against their plain versions'.
   4. path 1   the 3D-VAE configuration: one full-width UNet forward at the
               slice shape with the kernels and then with the plain versions,
-              same weights; then VideoUpscalePipeline at released width on a
-              64x64, 14-frame clip (256x256 out), 30 DDIM steps, CFG 6, noise
-              level 120, fp32 3-frame VAE decode; its five kernels must
-              launch. Then the same call on the plain versions (timed), and a
-              2-step pair.
+              same weights, and for each route the share of a forward's wall
+              time in which the card runs kernels (torch.profiler); then
+              VideoUpscalePipeline at released width on a 64x64, 14-frame
+              clip (256x256 out), 30 DDIM steps, CFG 6, noise level 120, fp32
+              3-frame VAE decode; its five kernels must launch. Then the same
+              call on the plain versions (timed), and a 2-step pair.
   5. path 2   the README's video-VAE configuration: the UNet check at T = 5,
               96x160; then the pipeline on a 96x160, 5-frame clip (384x640
               out), 30 steps, CFG 6, noise level 120, the fp32 video VAE
@@ -100,6 +104,10 @@ RESBLOCK_P2 = ((2, 5, 96, 160, 256, 5), (2, 5, 96, 160, 512, 5), (1, 5, 48, 80, 
 # conv is this conv)
 CONV_SITES = tuple(dict.fromkeys((*site[:5], site[4], k) for site in RESBLOCK_P1 + RESBLOCK_P2
                                  for k in (site[5], 3)))
+# feed-forward shapes (B*T, tokens, C): every transformer level of path 1
+# (B*T = 32) and of path 2 (B*T = 10)
+FF_SITES = ((32, 1024, 512), (32, 256, 512), (32, 64, 1024),
+            (10, 3840, 512), (10, 960, 512), (10, 240, 1024))
 # shapes no path gives a kernel, one for each of its built variants: flash at
 # each head width (64, 128 and 256; 80 and 384 run padded to 128 and 512,
 # key counts not a multiple of any tile); the conv at T > 8, Cin = 1024 !=
@@ -265,7 +273,7 @@ def check_kernels():
             lambda: fused_temporal_resblock(*args, groups=32, eps=1e-6),
             lambda: fused_temporal_resblock_plain(*args, 32, 1e-6),
             nbytes(x, x, w1, w2, b1, b2, n1w, n1b, n2w, n2b),
-            2.0 * rows * c * c * (taps(k, t) + taps(3, t))))
+            2.0 * rows * c * c * (taps(k, t) + taps(3, t)), graphs=True))
     # 3. text cross-attention at the C = 512 levels: path 1 (context (4, 77,
     # 1024), T = 8) and path 2 (context (2, 77, 1024), T = 5)
     for b, t, s in ((4, 8, 1024), (4, 8, 256), (2, 5, 3840), (2, 5, 960)):
@@ -285,10 +293,8 @@ def check_kernels():
                                                 vo.to(torch.bfloat16), 77, bo, t, 1e-5, True),
             nbytes(x, x, lw, lb, wq, k_, v_, wo, bo),
             float(b * t) * s * 4 * 512 * 8 * 77))
-    # 4. feed-forward: every transformer level of path 1 (B*T = 32) and of
-    # path 2 (B*T = 10)
-    for bt, s, c in ((32, 1024, 512), (32, 256, 512), (32, 64, 1024),
-                     (10, 3840, 512), (10, 960, 512), (10, 240, 1024)):
+    # 4. feed-forward: every transformer level of both paths
+    for bt, s, c in FF_SITES:
         x = inp.normal(bt, s, c)
         lw, lb = inp.norm(c)
         w1, b1 = inp.weight(8 * c, c), inp.normal(8 * c, scale=0.1)
@@ -298,7 +304,7 @@ def check_kernels():
             "fused_feedforward", [bt, s, c],
             lambda: fused_feedforward(*args, add_residual=True),
             lambda: fused_feedforward_plain(*args, 1e-5, True),
-            nbytes(x, x, lw, lb, w1, b1, w2, b2), float(bt) * s * 24 * c * c))
+            nbytes(x, x, lw, lb, w1, b1, w2, b2), float(bt) * s * 24 * c * c, graphs=True))
     # 5. flash attention: the VAE mid block (d = 512) in 3- and 2-frame decode
     # chunks, at path 1's 64x64 and path 2's 96x160 latent, the flagship's
     # C = 1024 UNet self-attention (40x40 latent), and the other widths
@@ -362,9 +368,24 @@ def check_kernels():
     return recs
 
 
+def busy_share(fn):
+    """The card's kernel time during one call of ``fn`` (torch.profiler,
+    CUDA activity only: kernels on one stream, which do not overlap) and the
+    call's wall time (host clock, synchronised), in seconds."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    return sum(e.device_time_total for e in prof.key_averages()) / 1e6, wall
+
+
 def check_unet(pipe, frames: int, h: int, w: int):
     """One full-width UNet forward (CFG rows, B = 2) with the kernels and
-    with the plain versions, same weights and inputs."""
+    with the plain versions, same weights and inputs; then, for each route,
+    the share of one forward's wall time in which the card runs kernels."""
     inp = Inputs(2)
     unet = pipe.m.unet
     sample = inp.normal(2, frames, h, w, 4)
@@ -381,7 +402,16 @@ def check_unet(pipe, frames: int, h: int, w: int):
         f"finite={bool(torch.isfinite(out).all())}")
     if not (torch.isfinite(out).all() and rel <= UNET_TOL):
         raise AssertionError(f"UNet with kernels disagrees with the plain UNet: {rel:.3e}")
-    return rel
+    forward = lambda: unet(sample, 500, low_res, ctx, level, cfg_dup=True)
+    with torch.no_grad():
+        busy, wall = busy_share(forward)
+        with _cuda.plain_path():
+            plain_busy, plain_wall = busy_share(forward)
+    log(f"unet forward, card busy / wall (profiled): kernels {busy * 1e3:.1f} / "
+        f"{wall * 1e3:.1f} ms ({busy / wall:.1%}), plain {plain_busy * 1e3:.1f} / "
+        f"{plain_wall * 1e3:.1f} ms ({plain_busy / plain_wall:.1%})")
+    return dict(rel_l2=rel, busy_s=busy, wall_s=wall, plain_busy_s=plain_busy,
+                plain_wall_s=plain_wall)
 
 
 def check_output(out, shape):
@@ -412,6 +442,18 @@ def launch_shapes():
     """The launches of the last run by kernel and shape, shapes as strings."""
     return {k: {json.dumps(list(s)): n for s, n in v.items()} for k, v in _cuda.SHAPES.items()
             if v}
+
+
+def kernel_seconds(shapes, by_key):
+    """Per kernel, the seconds a path's launches take as isolated calls and
+    their plain versions at the same calls: launches by shape times the
+    kernels phase's per-call times."""
+    out = {}
+    for name, by_shape in shapes.items():
+        recs = [(n, by_key[(name, shape)]) for shape, n in by_shape.items()]
+        out[name] = {route: sum(n * r[key] for n, r in recs) / 1e3
+                     for route, key in (("kernels", "ms"), ("plain", "plain_ms"))}
+    return out
 
 
 def run_path1(pipe, card: str, checked):
@@ -583,9 +625,9 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"built the pipeline in {time.time() - t0:.1f} s")
     phase("path 1: unet")
-    check_unet(pipe, 8, LR, LR)
+    unet1 = check_unet(pipe, 8, LR, LR)
     phase("path 1: e2e")
-    path1 = run_path1(pipe, card, checked)
+    path1 = dict(run_path1(pipe, card, checked), unet=unet1)
     del pipe
     torch.cuda.empty_cache()
 
@@ -595,13 +637,21 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"built the pipeline in {time.time() - t0:.1f} s")
     phase("path 2: unet at T = 5")
-    check_unet(pipe, FRAMES2, H2, W2)
+    unet2 = check_unet(pipe, FRAMES2, H2, W2)
     phase("path 2: e2e")
-    path2 = run_path2(pipe, card, checked)
+    path2 = dict(run_path2(pipe, card, checked), unet=unet2)
     del pipe
     torch.cuda.empty_cache()
 
     paths = {"path1": path1, "path2": path2}
+    by_key = {(r["name"], json.dumps(r["shape"])): r for r in recs}
+    for name, p in paths.items():  # fault C1 in one run: the kernels against the plain route
+        per_kernel = p["kernel_seconds"] = kernel_seconds(p["launches_by_shape"], by_key)
+        kern, plain = (sum(v[r] for v in per_kernel.values()) for r in ("kernels", "plain"))
+        each = ", ".join(f"{k} {v['kernels']:.3f}/{v['plain']:.3f}" for k, v in per_kernel.items())
+        log(f"{name}: kernels as isolated calls {kern:.3f} s against their plain versions "
+            f"{plain:.3f} s ({each}); e2e {p['seconds']:.2f} s against the plain route "
+            f"{p['plain_seconds']:.2f} s")
     with open("chiprun_out/chip_smoke_kernels.json", "w") as f:
         json.dump({"card": card, "steps": STEPS, "build_seconds": build_secs, "paths": paths,
                    "kernels": recs}, f, indent=1)

@@ -1,7 +1,9 @@
 """The plain versions of the port's fused temporal attention, fused GroupNorm
 and temporal conv against the JAX package's functions, their Hopper gates,
 and the two modules that route to them (``TemporalAttention`` on its kernel
-route and on its module route, ``FusedGroupNorm``), on the CPU.
+route and on its module route, ``FusedGroupNorm``), on the CPU; and, for the
+kernels on the GEMM core (temporal resblock, feed-forward), their gates, the
+resblock's GroupNorm partials and finalize, and the weight-operand cache.
 
 Inputs come from numpy with a seed. The JAX functions run through their
 non-Pallas references (``use_pallas=False`` / ``_reference``), the port's
@@ -20,14 +22,18 @@ import torch
 
 from upscale_a_video_tpu.nn import attention as ja
 from upscale_a_video_tpu.nn import blocks as jb
+from upscale_a_video_tpu.ops import fused_feedforward as j_ff
 from upscale_a_video_tpu.ops import fused_groupnorm as j_gn
 from upscale_a_video_tpu.ops import fused_temporal_attention as j_fta
+from upscale_a_video_tpu.ops import fused_temporal_resblock as j_res
 from upscale_a_video_tpu.ops import temporal_conv as j_tc
 from upscale_a_video_tpu_torch.nn import attention as ta
 from upscale_a_video_tpu_torch.nn import blocks as tb
 from upscale_a_video_tpu_torch.ops import _cuda
+from upscale_a_video_tpu_torch.ops import fused_feedforward as t_ff
 from upscale_a_video_tpu_torch.ops import fused_groupnorm as t_gn
 from upscale_a_video_tpu_torch.ops import fused_temporal_attention as t_fta
+from upscale_a_video_tpu_torch.ops import fused_temporal_resblock as t_res
 from upscale_a_video_tpu_torch.ops import temporal_attention_block as t_tab
 from upscale_a_video_tpu_torch.ops import temporal_conv as t_tc
 from upscale_a_video_tpu_torch.weights import flatten_tree, to_state_dict
@@ -254,7 +260,7 @@ def test_cpu_calls_take_the_plain_version_and_count_no_launch():
     assert all(_cuda.LAUNCHES[n] == 0 and not _cuda.SHAPES[n] for n in names)
     assert {p.name for p in _cuda.sources()} >= {
         "fused_temporal_attention.cu", "fused_groupnorm.cu", "temporal_conv.cu",
-        "group_norm.cuh", "temporal_conv.cuh", "hopper.cuh"}
+        "group_norm.cuh", "gemm_core.cuh", "hopper.cuh"}
 
 
 def test_launches_are_counted_by_shape():
@@ -268,3 +274,164 @@ def test_launches_are_counted_by_shape():
     _cuda.reset_launch_counts()
     assert set(_cuda.SHAPES) == set(_cuda.KERNELS)
     assert not any(_cuda.SHAPES.values()) and not any(_cuda.LAUNCHES.values())
+
+
+# ------------------------------------------- kernels on the GEMM core
+
+BF = dict(dtype=torch.bfloat16, device="meta")
+
+
+def test_feedforward_gate():
+    """Every feed-forward shape of both paths, and shapes the earlier gate
+    refused (rows not a multiple of 32 or 16, C = 192 or 64); not fp32, not
+    C off the 64-channel slices, not C > 1024 (the JAX gate's bound)."""
+    import chip_smoke
+
+    for shape in chip_smoke.FF_SITES + ((7, 45, 512), (3, 33, 192), (1, 1, 64), (5, 99, 1024)):
+        assert t_ff.feedforward_fits(torch.empty(shape, **BF)), shape
+    assert not t_ff.feedforward_fits(torch.empty(4, 64, 512, device="meta"))
+    assert not t_ff.feedforward_fits(torch.empty(4, 64, 96, **BF))
+    assert not t_ff.feedforward_fits(torch.empty(4, 64, 1280, **BF))
+    assert not t_ff.feedforward_fits(torch.empty(0, 64, 512, **BF))
+
+
+def test_resblock_gate():
+    """Every resblock site of both paths, and shapes the WMMA conv refused
+    (T = 12, 300- and 15-pixel frames, C = 320); not fp32, not C off the
+    64-channel slices or the group counts, not C > 512 (the card check holds
+    no wider site)."""
+    import chip_smoke
+
+    for (b, t, h, w, c, _) in chip_smoke.RESBLOCK_P1 + chip_smoke.RESBLOCK_P2:
+        assert t_res.fused_resblock_fits(torch.empty(b, t, h, w, c, **BF), 32, 32)
+    for shape in ((1, 12, 15, 20, 320), (2, 3, 3, 5, 64), (1, 1, 1, 1, 512), (2, 16, 8, 8, 256)):
+        assert t_res.fused_resblock_fits(torch.empty(shape, **BF), 32), shape
+    assert not t_res.fused_resblock_fits(torch.empty(2, 8, 8, 8, 256, device="meta"), 32)
+    assert not t_res.fused_resblock_fits(torch.empty(2, 8, 8, 8, 96, **BF), 32)
+    assert not t_res.fused_resblock_fits(torch.empty(2, 8, 8, 8, 1024, **BF), 32)
+    assert not t_res.fused_resblock_fits(torch.empty(2, 8, 8, 8, 128, **BF), 48)
+    assert not t_res.fused_resblock_fits(torch.empty(2, 8, 8, 8, 128, **BF), 32, 48)
+
+
+@pytest.mark.parametrize("k1,temb", [(5, True), (3, False)])
+def test_temporal_resblock_plain_at_newly_admitted_shapes(k1, temb):
+    """T = 12 and a 300-pixel frame (15 x 20, a multiple of no tile), C = 64,
+    against the JAX reference."""
+    rng = np.random.default_rng(50 + k1)
+    c = 64
+    x = rand(rng, 1, 12, 15, 20, c)
+    n1w, n1b = 1 + rand(rng, c, scale=0.1), rand(rng, c, scale=0.1)
+    n2w, n2b = 1 + rand(rng, c, scale=0.1), rand(rng, c, scale=0.1)
+    w1 = rand(rng, k1, 1, 1, c, c, scale=(k1 * c) ** -0.5)
+    w2 = rand(rng, 3, 1, 1, c, c, scale=(3 * c) ** -0.5)
+    b1, b2 = rand(rng, c, scale=0.1), rand(rng, c, scale=0.1)
+    te = rand(rng, 1, c) if temb else None
+    want = j_res.fused_temporal_resblock(x, n1w, n1b, w1, b1, te, n2w, n2b, w2, b2, groups=32,
+                                         eps=1e-6, dtype=jnp.float32, use_pallas=False)
+    tw = lambda w: T(w).permute(4, 3, 0, 1, 2)
+    assert t_res.fused_resblock_fits(T(x).to(torch.bfloat16), 32)
+    got = t_res.fused_temporal_resblock(T(x), T(n1w), T(n1b), tw(w1), T(b1),
+                                        None if te is None else T(te), T(n2w), T(n2b), tw(w2),
+                                        T(b2), groups=32, eps=1e-6)
+    close(want, got, 2e-5)
+
+
+@pytest.mark.parametrize("rows,c", [(45, 128), (7, 192)])
+def test_feedforward_plain_at_newly_admitted_shapes(rows, c):
+    """Row counts that are a multiple of neither 32 nor 16, and C = 192,
+    against the JAX reference."""
+    rng = np.random.default_rng(rows)
+    x = rand(rng, 3, rows, c)
+    lw, lb = 1 + rand(rng, c, scale=0.1), rand(rng, c, scale=0.1)
+    w1, b1 = rand(rng, c, 8 * c, scale=c ** -0.5), rand(rng, 8 * c, scale=0.1)
+    w2, b2 = rand(rng, 4 * c, c, scale=(4 * c) ** -0.5), rand(rng, c, scale=0.1)
+    want = j_ff.fused_feedforward(x, lw, lb, w1, b1, w2, b2, use_pallas=False,
+                                  add_residual=True)
+    assert t_ff.feedforward_fits(T(x).to(torch.bfloat16))
+    got = t_ff.fused_feedforward(T(x), T(lw), T(lb), T(w1).t(), T(b1), T(w2).t(), T(b2),
+                                 add_residual=True)
+    close(want, got, 2e-5)
+
+
+@pytest.mark.parametrize("hw,rows", [(300, 128), (240, 128), (64, 64), (100, 64)])
+def test_gn_finalize_plain_matches_jax_affine_from_partials(hw, rows):
+    """The first conv's per-(tile, channel) partials, with the rows past the
+    frame in the last tile holding garbage (as bias + temb after the
+    epilogue) and left out, give through the plain finalize the affine of
+    JAX's ``_affine_from_partials`` on the same sums, and of ``_gn_affine``
+    on the frame itself."""
+    rng = np.random.default_rng(hw + rows)
+    b, t, c, groups = 2, 5, 64, 16
+    n = -(-hw // rows)
+    h = rand(rng, b, t, n * rows, c) * 1.5 + 0.3
+    h[:, :, hw:] = 7.0 + rand(rng, b, t, n * rows - hw, c)  # the zero fill after the epilogue
+    scale, bias = 1 + rand(rng, c, scale=0.1), rand(rng, c, scale=0.1)
+    part = t_res.tile_partials(T(h), hw, rows)
+    assert part.shape == (b, t * n, c, 2)
+    a, d = t_res.gn_affine_from_partials(part, t * hw * (c // groups), T(scale), T(bias), groups,
+                                         1e-6)
+    valid = h[:, :, :hw].astype(np.float64)
+    sums = np.stack([valid.sum(axis=(1, 2)), (valid ** 2).sum(axis=(1, 2))], axis=1)
+    jpart = np.zeros((b, 2, j_res._GPAD), np.float32)  # JAX's (B, 2, GPAD) per-group sums
+    jpart[:, :, :groups] = sums.reshape(b, 2, groups, c // groups).sum(axis=-1)
+    ja, jd = j_res._affine_from_partials(jnp.asarray(jpart), t * hw, groups, c, 1e-6,
+                                         jnp.asarray(scale), jnp.asarray(bias))
+    close(ja, a, 2e-5)
+    close(jd, d, 2e-5)
+    ga, gd = j_res._gn_affine(jnp.asarray(h[:, :, :hw].reshape(b, t, hw, 1, c)),
+                              jnp.asarray(scale), jnp.asarray(bias), groups, 1e-6)
+    close(ga, a, 2e-5)
+    close(gd, d, 2e-5)
+
+
+def test_resblock_partial_counts():
+    """The wrapper's tile height and partial-row count at every resblock
+    site of both paths (and ragged frames) against a direct count: the
+    tiles the kernel's grid walks, and the distinct (frame, tile) pairs of
+    the frame's rows."""
+    import chip_smoke
+
+    sites = [s[:5] for s in chip_smoke.RESBLOCK_P1 + chip_smoke.RESBLOCK_P2]
+    sites += [(1, 12, 15, 20, 320), (2, 3, 3, 5, 64)]
+    for sms in (132, 114):
+        for (b, t, h, w, c) in sites:
+            hw = h * w
+            rows = t_res.tile_rows(b * t, hw, c, sms)
+            big_tiles = b * t * int(np.ceil(hw / 128)) * int(np.ceil(c / 256))
+            assert rows == (64 if hw <= 64 or big_tiles < sms else 128)
+            pairs = {(f, r // rows) for f in range(t) for r in range(hw)}
+            assert t_res.partial_rows(t, hw, rows) == len(pairs)
+    # the path shapes fall on both sides of the rule
+    assert t_res.tile_rows(32, 4096, 512, 132) == 128
+    assert t_res.tile_rows(32, 256, 512, 132) == 64   # 128 big tiles < 132 SMs
+    assert t_res.tile_rows(10, 240, 512, 132) == 64   # 40 big tiles
+
+
+def test_weight_operand_cache_follows_updates_and_loads():
+    """A converted weight operand is made once per version of the weight:
+    an in-place update and ``load_state_dict`` both give the new layout, and
+    the cache adds no key to the module's state dict."""
+    from upscale_a_video_tpu_torch.ops.temporal_conv import tap_major
+
+    torch.manual_seed(0)
+    m = tb.ResnetBlock3DCNN(64, temb_channels=None, groups=32, temporal_kernel=(5, 1, 1))
+    keys = set(m.state_dict())
+    w = m.conv1.weight
+    made = []
+    make = lambda t: made.append(1) or tap_major(t)
+    first = _cuda.cached(w, "taps", make)
+    assert torch.equal(first, tap_major(w)) and first.shape == (5, 64, 64)
+    assert _cuda.cached(w, "taps", make) is first and len(made) == 1
+    with torch.no_grad():
+        w.mul_(2.0)
+    second = _cuda.cached(w, "taps", make)
+    assert len(made) == 2 and torch.equal(second, tap_major(w))
+    state = {k: v.clone() for k, v in m.state_dict().items()}
+    state["conv1.weight"].fill_(0.5)
+    m.load_state_dict(state, strict=True)
+    third = _cuda.cached(w, "taps", make)
+    assert len(made) == 3 and torch.all(third == 0.5)
+    assert set(m.state_dict()) == keys
+    # a weight already in the kernel's dtype and layout is its own operand
+    same = torch.ones(8, 8)
+    assert _cuda.cached(same, "id", lambda t: t) is same

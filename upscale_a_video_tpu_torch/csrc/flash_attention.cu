@@ -196,7 +196,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk)  // 16 keys: 2048 bytes
-      Wgmma<kDW>::rs_t(acc_o, p[kk], vd + kk * 128, 1);
+      Wgmma<kDW>::template rs<1>(acc_o, p[kk], vd + kk * 128, 1);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(acc_o);

@@ -83,7 +83,7 @@ cudaError_t run(const void* x, const void* gamma, const void* beta, void* part, 
   cudaError_t e = launch_gn_partials(F32, x, part, N, rows, C, nblk, stream);
   if (e != cudaSuccess) return e;
   e = launch_gn_finalize(true, part, gamma, beta, a, d, N, nblk, C, G,
-                         (float)rows * (float)(C / G), eps, stream);
+                         (float)rows * (float)(C / G), eps, 1.f, stream);
   if (e != cudaSuccess) return e;
   const long long per_sample = (long long)rows * C, total = per_sample * N;
   const long long want = (total / 4 + kThreads - 1) / kThreads;

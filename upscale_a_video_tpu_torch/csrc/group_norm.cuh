@@ -3,9 +3,10 @@
 // GroupNorm (csrc/fused_groupnorm.cu).
 //
 // Hopper blocks run in no order, so a sum across blocks is two passes: each
-// block writes per-channel partial sums of its rows, and one small kernel
-// reduces them per (sample, group) in a fixed order (double accumulation), so
-// the result does not change from run to run.
+// block writes per-channel partial sums of its rows (the resblock's first
+// conv writes them for its output tiles), and one small kernel reduces them
+// per (sample, group) in a fixed order (double accumulation), so the result
+// does not change from run to run.
 #pragma once
 
 #include "common.cuh"
@@ -73,31 +74,49 @@ gn_partials_kernel(const void* __restrict__ x, float* __restrict__ part, int row
   }
 }
 
-// part: (B, nblk, C, 2) -> a, d: (B, C) fp32 with GN(x) = x * a + d
-// (var = E[x^2] - E[x]^2; gamma/beta fp32 (F32) or bf16).
+// part: (B, nblk, C, 2) -> a, d: (B, C) fp32 with scale * GN(x) = x * a + d
+// (var = E[x^2] - E[x]^2; gamma/beta fp32 (F32) or bf16). One block per
+// (group, sample): the threads take the group's nblk x C/G partials in
+// turn, summing in double, then a fixed shared-memory tree adds the
+// threads' sums, so the result is the same on every run.
 template <bool F32>
-__global__ void gn_finalize_kernel(const float* __restrict__ part, const void* __restrict__ gamma,
-                                   const void* __restrict__ beta, float* __restrict__ a,
-                                   float* __restrict__ d, int nblk, int C, int groups,
-                                   float count, float eps) {
-  const int b = blockIdx.x, cg = C / groups;
-  for (int g = threadIdx.x; g < groups; g += blockDim.x) {
-    double s = 0.0, s2 = 0.0;
-    for (int blk = 0; blk < nblk; ++blk) {
-      const float* pp = part + (((size_t)b * nblk + blk) * C + g * cg) * 2;
-      for (int c = 0; c < cg; ++c) {
-        s += pp[2 * c];
-        s2 += pp[2 * c + 1];
-      }
+__global__ void __launch_bounds__(kThreads)
+gn_finalize_kernel(const float* __restrict__ part, const void* __restrict__ gamma,
+                   const void* __restrict__ beta, float* __restrict__ a, float* __restrict__ d,
+                   int nblk, int C, int groups, float count, float eps, float scale) {
+  __shared__ double red[2][kThreads];
+  __shared__ float stat[2];
+  const int g = blockIdx.x, b = blockIdx.y, cg = C / groups, tid = threadIdx.x;
+  const float* pg = part + ((size_t)b * nblk * C + (size_t)g * cg) * 2;
+  double s = 0.0, s2 = 0.0;
+  for (int i = tid; i < nblk * cg; i += kThreads) {
+    const int blk = i / cg;
+    const float2 v = *reinterpret_cast<const float2*>(pg + ((size_t)blk * C + (i - blk * cg)) * 2);
+    s += v.x;
+    s2 += v.y;
+  }
+  red[0][tid] = s;
+  red[1][tid] = s2;
+  __syncthreads();
+  for (int w = kThreads / 2; w > 0; w >>= 1) {
+    if (tid < w) {
+      red[0][tid] += red[0][tid + w];
+      red[1][tid] += red[1][tid + w];
     }
-    const float mean = (float)(s / count);
-    const float var = (float)(s2 / count) - mean * mean;
-    const float rstd = rsqrtf(var + eps);
-    for (int c = g * cg; c < (g + 1) * cg; ++c) {
-      const float gm = ldf<F32>(gamma, c);
-      a[(size_t)b * C + c] = rstd * gm;
-      d[(size_t)b * C + c] = ldf<F32>(beta, c) - mean * rstd * gm;
-    }
+    __syncthreads();
+  }
+  if (tid == 0) {
+    const float mean = (float)(red[0][0] / count);
+    const float var = (float)(red[1][0] / count) - mean * mean;
+    stat[0] = mean;
+    stat[1] = rsqrtf(var + eps);
+  }
+  __syncthreads();
+  const float mean = stat[0], rstd = stat[1];
+  for (int c = g * cg + tid; c < (g + 1) * cg; c += kThreads) {
+    const float gm = ldf<F32>(gamma, c);
+    a[(size_t)b * C + c] = scale * (rstd * gm);
+    d[(size_t)b * C + c] = scale * (ldf<F32>(beta, c) - mean * rstd * gm);
   }
 }
 
@@ -113,17 +132,21 @@ inline cudaError_t launch_gn_partials(bool f32, const void* x, void* part, int B
   return cudaGetLastError();
 }
 
-// gamma, beta: (C,) fp32 (f32) or bf16.
+// gamma, beta: (C,) fp32 (f32) or bf16. scale is a power of two (exact).
 inline cudaError_t launch_gn_finalize(bool f32, const void* part, const void* gamma,
                                       const void* beta, void* a, void* d, int B, int nblk, int C,
-                                      int groups, float count, float eps, cudaStream_t stream) {
+                                      int groups, float count, float eps, float scale,
+                                      cudaStream_t stream) {
   if (groups < 1 || C % groups != 0) return cudaErrorInvalidValue;
+  const dim3 grid(groups, B);
   if (f32)
-    gn_finalize_kernel<true><<<B, 128, 0, stream>>>((const float*)part, gamma, beta, (float*)a,
-                                                     (float*)d, nblk, C, groups, count, eps);
+    gn_finalize_kernel<true><<<grid, kThreads, 0, stream>>>(
+        (const float*)part, gamma, beta, (float*)a, (float*)d, nblk, C, groups, count, eps,
+        scale);
   else
-    gn_finalize_kernel<false><<<B, 128, 0, stream>>>((const float*)part, gamma, beta, (float*)a,
-                                                      (float*)d, nblk, C, groups, count, eps);
+    gn_finalize_kernel<false><<<grid, kThreads, 0, stream>>>(
+        (const float*)part, gamma, beta, (float*)a, (float*)d, nblk, C, groups, count, eps,
+        scale);
   return cudaGetLastError();
 }
 

@@ -1,7 +1,7 @@
-// Hopper building blocks of the TMA + wgmma kernels (temporal_conv.cu,
+// Hopper building blocks of the TMA + wgmma kernels (gemm_core.cuh,
 // flash_attention.cu), in raw PTX: mbarriers, TMA tile loads, 128-byte
-// swizzled shared-memory descriptors, the wgmma instructions and named
-// barriers; on the host, the tensor-map encode, reached through the
+// swizzled shared-memory descriptors, ldmatrix, the wgmma instructions and
+// named barriers; on the host, the tensor-map encode, reached through the
 // runtime's driver entry point (no -lcuda).
 //
 // Registers: wgmma wants its warpgroups aligned (warps 0-3, 4-7), and ptxas
@@ -131,6 +131,28 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+__device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+}
+
+// Four 8x8 bf16 matrices from shared memory; lanes 8i..8i+7 give the row
+// addresses of matrix i, and register i of lane l holds row l/4, columns
+// 2(l%4) and 2(l%4)+1 of matrix i.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// tanh on the special-function unit: one instruction, relative error about
+// 2^-11, below a bf16 result's rounding.
+__device__ __forceinline__ float tanh_fast(float x) {
+  float y;
+  asm("tanh.approx.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // wgmma.mma_async m64nNk16, bf16 inputs, fp32 accumulators. Each thread of
 // the warpgroup holds N/2 accumulators: warp w, lane l owns rows
 // 16w + l/4 (d[4j], d[4j+1]) and 16w + l/4 + 8 (d[4j+2], d[4j+3]) at columns
@@ -177,23 +199,25 @@ struct Wgmma<64> {
         "+f"(d[30]), "+f"(d[31])
       : "l"(a), "l"(b), "r"(acc));
   }
-  // D(64x64, fp32) (+)= A(64x16, registers) * B(16x64, smem, N-major).
-  static __device__ __forceinline__ void rs_t(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
-                                              int acc) {
+  // D(64x64, fp32) (+)= A(64x16, registers) * B(16x64, smem), B K-major (TB = 0)
+  // or N-major (TB = 1).
+  template <int TB>
+  static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                                            int acc) {
     asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
       "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
         "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc), "n"(TB));
   }
 };
 
@@ -224,9 +248,11 @@ struct Wgmma<128> {
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(a), "l"(b), "r"(acc));
   }
-  // D(64x128, fp32) (+)= A(64x16, registers) * B(16x128, smem, N-major).
-  static __device__ __forceinline__ void rs_t(float (&d)[64], const uint32_t (&a)[4], uint64_t b,
-                                              int acc) {
+  // D(64x128, fp32) (+)= A(64x16, registers) * B(16x128, smem), B K-major (TB = 0)
+  // or N-major (TB = 1).
+  template <int TB>
+  static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b,
+                                            int acc) {
     asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
@@ -236,7 +262,7 @@ struct Wgmma<128> {
       "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
       "%60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -248,7 +274,7 @@ struct Wgmma<128> {
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc), "n"(TB));
   }
 };
 
@@ -295,9 +321,11 @@ struct Wgmma<256> {
         "+f"(d[126]), "+f"(d[127])
       : "l"(a), "l"(b), "r"(acc));
   }
-  // D(64x256, fp32) (+)= A(64x16, registers) * B(16x256, smem, N-major).
-  static __device__ __forceinline__ void rs_t(float (&d)[128], const uint32_t (&a)[4], uint64_t b,
-                                              int acc) {
+  // D(64x256, fp32) (+)= A(64x16, registers) * B(16x256, smem), B K-major (TB = 0)
+  // or N-major (TB = 1).
+  template <int TB>
+  static __device__ __forceinline__ void rs(float (&d)[128], const uint32_t (&a)[4], uint64_t b,
+                                            int acc) {
     asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
@@ -312,7 +340,7 @@ struct Wgmma<256> {
       "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
       "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
       "%120, %121, %122, %123, %124, %125, %126, %127}, "
-      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      "{%128, %129, %130, %131}, %132, p, 1, 1, %134;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -335,7 +363,7 @@ struct Wgmma<256> {
         "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
         "+f"(d[126]), "+f"(d[127])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc), "n"(TB));
   }
 };
 

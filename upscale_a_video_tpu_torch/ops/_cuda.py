@@ -23,7 +23,7 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -44,10 +44,10 @@ _SIGNATURES = {
     "uav_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "uav_temporal_attention_block": [_P] * 12 + [_I] * 7 + [_F, _I, _P],
     "uav_cross_attention_block": [_P] * 7 + [_I] * 6 + [_F, _I, _P],
-    "uav_fused_feedforward": [_P] * 8 + [_I, _I, _F, _I, _P],
+    "uav_fused_feedforward": [_P] * 10 + [_I, _I, _F, _I, _P],
     "uav_gn_partials": [_P, _P, _I, _I, _I, _I, _P],
     "uav_gn_finalize": [_P] * 5 + [_I] * 4 + [_F, _F, _P],
-    "uav_temporal_conv": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "uav_resblock_conv": [_P, _P, _P, _P, _I] + [_P] * 5 + [_I] * 5 + [_P],
     "uav_fused_temporal_attention": [_P] * 5 + [_I] * 4 + [_P],
     "uav_fused_group_norm": [_P] * 7 + [_I] * 5 + [_F, _I, _I, _P],
     "uav_temporal_conv_bias": [_P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -138,6 +138,11 @@ def reset_launch_counts() -> None:
         SHAPES[k].clear()
 
 
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of the card (the GEMM core's tile rule)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
@@ -169,6 +174,28 @@ def tma_operand(t: torch.Tensor, name: str) -> torch.Tensor:
         raise ValueError(f"{name}: TMA needs a 16-byte-aligned base and row stride, got "
                          f"shape {tuple(t.shape)} at {t.data_ptr():#x}")
     return t
+
+
+def cached(t: torch.Tensor, key: str, make: Callable[[torch.Tensor], torch.Tensor]
+           ) -> torch.Tensor:
+    """``make(t)``, converted once per version of ``t``: kept on the tensor
+    itself (an attribute, so outside every ``state_dict``) and made again
+    when ``t`` has another storage (``data_ptr``) or was written in place
+    (``_version``, which ``load_state_dict``'s copy also advances). For
+    weight operands that a kernel wants in another layout or dtype."""
+    store = t.__dict__.setdefault("_uav_cached", {})
+    stamp = (t.data_ptr(), t._version)
+    hit = store.get(key)
+    if hit is None or hit[0] != stamp:
+        out = make(t)
+        hit = store[key] = (stamp, None if out is t else out)  # no cycle through t
+    return t if hit[1] is None else hit[1]
+
+
+def weight(t: torch.Tensor, dtype: torch.dtype, name: str) -> torch.Tensor:
+    """A weight as a kernel operand (:func:`operand`), converted once per
+    version of the weight (:func:`cached`)."""
+    return cached(t, f"operand:{dtype}", lambda w: operand(w.to(dtype), dtype, name))
 
 
 @contextlib.contextmanager

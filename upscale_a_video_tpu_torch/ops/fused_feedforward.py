@@ -1,7 +1,10 @@
-"""LayerNorm → GEGLU → out-projection (+ residual) in one kernel.
+"""LayerNorm → GEGLU → out-projection (+ residual) on the card in three
+launches: the LayerNorm, then two products on the GEMM core of
+``csrc/gemm_core.cuh`` whose epilogues apply the GEGLU and the bias and
+residual.
 
 Replaces ``upscale_a_video_tpu/ops/fused_feedforward.py::fused_feedforward``
-(Pallas ``_kernel``); the CUDA kernel is ``csrc/fused_feedforward.cu``.
+(Pallas ``_kernel``); the CUDA kernels are ``csrc/fused_feedforward.cu``.
 Weights are torch Linear weights: ``w1`` (8C, C), ``w2`` (C, 4C).
 """
 
@@ -36,10 +39,10 @@ def fused_feedforward_plain(x, ln_w, ln_b, w1, b1, w2, b2, eps: float = 1e-5,
 
 
 def feedforward_fits(x: torch.Tensor) -> bool:
+    """bf16 and C a multiple of 64 up to 1024 (as the JAX gate); any number
+    of rows (TMA zero-fills the last tile, whose stores are masked)."""
     c = x.shape[-1]
-    rows = x.numel() // c
-    return (x.dtype == torch.bfloat16 and c % 128 == 0 and c <= 1024
-            and rows % (32 if c <= 512 else 16) == 0)
+    return x.dtype == torch.bfloat16 and c % 64 == 0 and c <= 1024 and x.numel() > 0
 
 
 def fused_feedforward(x, ln_w, ln_b, w1, b1, w2, b2, eps: float = 1e-5,
@@ -47,17 +50,22 @@ def fused_feedforward(x, ln_w, ln_b, w1, b1, w2, b2, eps: float = 1e-5,
     """x: (..., C) pre-norm tokens → FF delta, or x + delta with ``add_residual``."""
     if not x.is_cuda:
         return fused_feedforward_plain(x, ln_w, ln_b, w1, b1, w2, b2, eps, add_residual)
+    if not feedforward_fits(x):
+        raise ValueError(f"fused_feedforward: unsupported x {tuple(x.shape)} {x.dtype}")
     c = x.shape[-1]
+    rows = x.numel() // c
     bf = torch.bfloat16
-    xf = _cuda.operand(x, bf, "x")
-    args = [_cuda.operand(t, bf, n) for t, n in
+    xf = _cuda.tma_operand(x, "x")
+    args = [_cuda.weight(t, bf, n) for t, n in
             ((ln_w, "ln_w"), (ln_b, "ln_b"), (w1, "w1"), (b1, "b1"), (w2, "w2"), (b2, "b2"))]
     if tuple(args[2].shape) != (8 * c, c) or tuple(args[4].shape) != (c, 4 * c):
         raise ValueError(f"fused_feedforward: weights {args[2].shape}, {args[4].shape} for C={c}")
+    hn = torch.empty(rows, c, device=x.device, dtype=bf)
+    m = torch.empty(rows, 4 * c, device=x.device, dtype=bf)
     out = torch.empty_like(xf)
     rc = _cuda.lib().uav_fused_feedforward(
-        xf.data_ptr(), *[a.data_ptr() for a in args], out.data_ptr(), xf.numel() // c, c,
-        float(eps), int(add_residual), _cuda.stream_ptr(x.device))
+        xf.data_ptr(), *[a.data_ptr() for a in args], hn.data_ptr(), m.data_ptr(),
+        out.data_ptr(), rows, c, float(eps), int(add_residual), _cuda.stream_ptr(x.device))
     _cuda.check(rc, "fused_feedforward")
     _cuda.count("fused_feedforward", tuple(x.shape))
     return out

@@ -56,8 +56,8 @@ def fused_group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     n, c = x.shape[0], x.shape[-1]
     rows = x.numel() // (n * c)
     xf = _cuda.operand(x, x.dtype, "x")
-    w = _cuda.operand(weight.float(), torch.float32, "weight")
-    b = _cuda.operand(bias.float(), torch.float32, "bias")
+    w = _cuda.weight(weight, torch.float32, "weight")
+    b = _cuda.weight(bias, torch.float32, "bias")
     nblk = max(1, min(rows, -(-BLOCKS // n)))
     part = torch.empty(n, nblk, c, 2, device=x.device, dtype=torch.float32)
     a = torch.empty(n, c, device=x.device, dtype=torch.float32)

@@ -3,10 +3,12 @@
 
 Replaces ``upscale_a_video_tpu/ops/temporal_conv.py::temporal_conv`` (Pallas
 ``_kernel``; oracle ``_conv_reference``); the CUDA kernel is
-``csrc/temporal_conv.cu``, an implicit GEMM on TMA-fed ``wgmma`` tiles. As
-in the JAX package it is wired into no model: ``nn.blocks.TemporalConv``
-stays on PyTorch's own conv. The port keeps torch's Conv3d weight layout
-(Cout, Cin, k, 1, 1); the JAX function takes DHWIO (k, 1, 1, Cin, Cout).
+``csrc/temporal_conv.cu``, the GEMM core of ``csrc/gemm_core.cuh`` (an
+implicit GEMM on TMA-fed ``wgmma`` tiles) with a bias epilogue; the temporal
+resblock runs the same core. As in the JAX package it is wired into no
+model: ``nn.blocks.TemporalConv`` stays on PyTorch's own conv. The port keeps
+torch's Conv3d weight layout (Cout, Cin, k, 1, 1); the JAX function takes
+DHWIO (k, 1, 1, Cin, Cout).
 """
 
 from __future__ import annotations
@@ -18,7 +20,17 @@ import torch.nn.functional as F
 
 from . import _cuda
 
-PIXELS = 16  # pixels per block of the temporal resblock's conv (csrc/temporal_conv.cuh)
+def tap_major(weight: torch.Tensor) -> torch.Tensor:
+    """Conv3d weight (Co, Ci, k, 1, 1) → (k, Co, Ci), contiguous: the
+    kernels' B operand, one (Co, Ci) matrix per tap."""
+    return weight[..., 0, 0].permute(2, 0, 1).contiguous()
+
+
+def taps_operand(weight: torch.Tensor, name: str = "weight") -> torch.Tensor:
+    """:func:`tap_major` in bf16 on the card, made once per version of the
+    weight (``_cuda.cached``)."""
+    return _cuda.cached(weight, "taps", lambda w: _cuda.tma_operand(
+        tap_major(w.to(torch.bfloat16)), name))
 
 
 def temporal_conv_plain(x: torch.Tensor, weight: torch.Tensor,
@@ -52,8 +64,8 @@ def temporal_conv(x: torch.Tensor, weight: torch.Tensor,
     b, t, h, w, cin = x.shape
     cout, k = weight.shape[0], weight.shape[2]
     xf = _cuda.tma_operand(x, "x")
-    taps = _cuda.tma_operand(weight[..., 0, 0].permute(2, 0, 1), "weight")
-    bf = None if bias is None else _cuda.operand(bias, torch.bfloat16, "bias")
+    taps = taps_operand(weight)
+    bf = None if bias is None else _cuda.weight(bias, torch.bfloat16, "bias")
     out = torch.empty(b, t, h, w, cout, device=x.device, dtype=torch.bfloat16)
     rc = _cuda.lib().uav_temporal_conv_bias(
         xf.data_ptr(), taps.data_ptr(), k, _cuda.ptr(bf), out.data_ptr(), b, t, h * w, cin, cout,
