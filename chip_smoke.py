@@ -16,10 +16,11 @@ Phases (each announced on a flushed line with the seconds elapsed):
               of the sites they would serve: the conv at every resblock conv
               of both paths, with the site's k and with k = 3): error, time,
               plain time, PyTorch library time where one call computes the
-              same function, and the card's bound; for the TMA + wgmma
-              kernels (flash, temporal conv, temporal resblock,
-              feed-forward) and their library calls also the GPU time
-              alone, replayed from a CUDA graph. Each path below fails if it
+              same function, and the card's bound; for the kernels on
+              TMA + wgmma (all but the GroupNorm and the fused temporal
+              attention) and their library calls also the GPU time alone,
+              replayed from a CUDA graph; for the cross-attention also its
+              fold (M and Vo) alone. Each path below fails if it
               launched a kernel at a shape this phase did not check (the
               wrappers count launches by shape, ``_cuda.SHAPES``); after both
               paths, each path's launches times these per-call times give
@@ -27,7 +28,9 @@ Phases (each announced on a flushed line with the seconds elapsed):
   4. path 1   the 3D-VAE configuration: one full-width UNet forward at the
               slice shape with the kernels and then with the plain versions,
               same weights, and for each route the share of a forward's wall
-              time in which the card runs kernels (torch.profiler); then
+              time in which the card runs kernels (torch.profiler), and on
+              the kernel route each port kernel's device time in that
+              forward beside its launches; then
               VideoUpscalePipeline at released width on a 64x64, 14-frame
               clip (256x256 out), 30 DDIM steps, CFG 6, noise level 120, fp32
               3-frame VAE decode; its five kernels must launch. Then the same
@@ -65,7 +68,7 @@ from upscale_a_video_tpu_torch.config import VIDEO_VAE
 from upscale_a_video_tpu_torch.ops import _cuda
 from upscale_a_video_tpu_torch.ops.attention import attention_plain
 from upscale_a_video_tpu_torch.ops.cross_attention_block import (
-    cross_attention_block_plain, fold, fused_cross_attention_block)
+    cross_attention_block_plain, fold, fold_keys, fused_cross_attention_block)
 from upscale_a_video_tpu_torch.ops.flash_attention import flash_attention
 from upscale_a_video_tpu_torch.ops.fused_feedforward import (fused_feedforward,
                                                              fused_feedforward_plain)
@@ -114,6 +117,23 @@ FF_SITES = ((32, 1024, 512), (32, 256, 512), (32, 64, 1024),
 # Cout and a frame of 300 pixels (ragged rows and channel tiles)
 FLASH_WIDTHS = ((1, 4, 1000, 64), (1, 4, 1000, 80), (1, 2, 700, 256), (1, 1, 600, 384))
 CONV_WIDE = (2, 12, 15, 20, 1024, 320, 5)
+# each port kernel's device kernels, by a part of their demangled names, in
+# the order they are tried; every other kernel is PyTorch's (cuDNN, cuBLAS,
+# element-wise, the cross-attention fold's two products). BiasEpilogue is
+# also the temporal conv's, and the gn_ passes also the GroupNorm's: neither
+# runs in a UNet forward.
+DEVICE_KERNELS = (("cab_kernel", "cross_attention_block"),
+                  ("tab_", "temporal_attention_block"),
+                  ("QkvAttnEpilogue", "temporal_attention_block"),
+                  ("OutProjEpilogue", "temporal_attention_block"),
+                  ("layernorm_kernel", "fused_feedforward"),
+                  ("GegluEpilogue", "fused_feedforward"),
+                  ("BiasEpilogue", "fused_feedforward"),
+                  ("K1Epilogue", "fused_temporal_resblock"),
+                  ("K2Epilogue", "fused_temporal_resblock"),
+                  ("gn_", "fused_temporal_resblock"),
+                  ("fta_kernel", "fused_temporal_attention"),
+                  ("flash_wgmma_kernel", "flash_attention"))
 PATH1_KERNELS = ("temporal_attention_block", "fused_temporal_resblock", "cross_attention_block",
                  "fused_feedforward", "flash_attention")
 PATH2_KERNELS = ("fused_temporal_attention", "fused_temporal_resblock", "cross_attention_block",
@@ -256,7 +276,7 @@ def check_kernels():
             lambda: fused_temporal_attention_block(*args, video_length=8, add_residual=True),
             lambda: temporal_attention_block_plain(*args, 8, 32, 1e-5, True),
             nbytes(x, x, lw, lb, wq, wk, wv, wo, bo, bias),
-            tokens * (8 * c * c + 4 * 8 * c)))
+            tokens * (8 * c * c + 4 * 8 * c), graphs=True))
     # 2. temporal resblock at every site of both paths
     for (batch, t, hh, ww, c, k) in RESBLOCK_P1 + RESBLOCK_P2:
         x = inp.normal(batch, t, hh, ww, c)
@@ -292,7 +312,12 @@ def check_kernels():
             lambda: cross_attention_block_plain(x, lw, lb, m.to(torch.bfloat16),
                                                 vo.to(torch.bfloat16), 77, bo, t, 1e-5, True),
             nbytes(x, x, lw, lb, wq, k_, v_, wo, bo),
-            float(b * t) * s * 4 * 512 * 8 * 77))
+            float(b * t) * s * 4 * 512 * 8 * 77, graphs=True))
+        # the fold of M and Vo, part of every call (its two products are
+        # PyTorch's): its own time per call
+        recs[-1]["fold_ms"] = cuda_ms(lambda: fold_keys(wq, k_, v_, wo, 8, 64))
+        log(f"cross_attention_block {recs[-1]['shape']}: fold alone {recs[-1]['fold_ms']:.4f} "
+            f"ms of {recs[-1]['ms']:.4f} ms per call")
     # 4. feed-forward: every transformer level of both paths
     for bt, s, c in FF_SITES:
         x = inp.normal(bt, s, c)
@@ -368,24 +393,40 @@ def check_kernels():
     return recs
 
 
+def device_split(prof):
+    """Device time in seconds by port kernel (DEVICE_KERNELS) and in all, from
+    a torch.profiler run with CUDA activity (kernels on one stream)."""
+    by_kernel, total = {}, 0.0
+    for e in prof.key_averages():
+        t = e.device_time_total / 1e6
+        total += t
+        name = next((k for part, k in DEVICE_KERNELS if part in e.key), "PyTorch")
+        if t:
+            by_kernel[name] = by_kernel.get(name, 0.0) + t
+    return by_kernel, total
+
+
 def busy_share(fn):
-    """The card's kernel time during one call of ``fn`` (torch.profiler,
-    CUDA activity only: kernels on one stream, which do not overlap) and the
-    call's wall time (host clock, synchronised), in seconds."""
+    """The card's kernel time during one call of ``fn``, split by port kernel
+    (:func:`device_split`), the call's wall time (host clock, synchronised),
+    in seconds, and the wrappers' launches in the call."""
     fn()
     torch.cuda.synchronize()
+    _cuda.reset_launch_counts()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
         fn()
         torch.cuda.synchronize()
         wall = time.time() - t0
-    return sum(e.device_time_total for e in prof.key_averages()) / 1e6, wall
+    by_kernel, busy = device_split(prof)
+    return busy, wall, by_kernel, {k: v for k, v in _cuda.LAUNCHES.items() if v}
 
 
 def check_unet(pipe, frames: int, h: int, w: int):
     """One full-width UNet forward (CFG rows, B = 2) with the kernels and
     with the plain versions, same weights and inputs; then, for each route,
-    the share of one forward's wall time in which the card runs kernels."""
+    the share of one forward's wall time in which the card runs kernels, and
+    on the kernel route the card's time in each port kernel."""
     inp = Inputs(2)
     unet = pipe.m.unet
     sample = inp.normal(2, frames, h, w, 4)
@@ -404,14 +445,17 @@ def check_unet(pipe, frames: int, h: int, w: int):
         raise AssertionError(f"UNet with kernels disagrees with the plain UNet: {rel:.3e}")
     forward = lambda: unet(sample, 500, low_res, ctx, level, cfg_dup=True)
     with torch.no_grad():
-        busy, wall = busy_share(forward)
+        busy, wall, split, launches = busy_share(forward)
         with _cuda.plain_path():
-            plain_busy, plain_wall = busy_share(forward)
+            plain_busy, plain_wall, _, _ = busy_share(forward)
     log(f"unet forward, card busy / wall (profiled): kernels {busy * 1e3:.1f} / "
         f"{wall * 1e3:.1f} ms ({busy / wall:.1%}), plain {plain_busy * 1e3:.1f} / "
         f"{plain_wall * 1e3:.1f} ms ({plain_busy / plain_wall:.1%})")
+    log("unet forward, card time by kernel in context (ms, launches): " + ", ".join(
+        f"{k} {v * 1e3:.3f} ({launches.get(k, '-')})"
+        for k, v in sorted(split.items(), key=lambda kv: -kv[1])))
     return dict(rel_l2=rel, busy_s=busy, wall_s=wall, plain_busy_s=plain_busy,
-                plain_wall_s=plain_wall)
+                plain_wall_s=plain_wall, in_context_s=split, in_context_launches=launches)
 
 
 def check_output(out, shape):

@@ -1,9 +1,12 @@
 """The plain versions of the port's fused temporal attention, fused GroupNorm
 and temporal conv against the JAX package's functions, their Hopper gates,
 and the two modules that route to them (``TemporalAttention`` on its kernel
-route and on its module route, ``FusedGroupNorm``), on the CPU; and, for the
+route and on its module route, ``FusedGroupNorm``), on the CPU; for the
 kernels on the GEMM core (temporal resblock, feed-forward), their gates, the
-resblock's GroupNorm partials and finalize, and the weight-operand cache.
+resblock's GroupNorm partials and finalize, and the weight-operand cache;
+and for the TMA + wgmma cross-attention and temporal attention blocks, their
+decompositions (the kernels' algorithms in plain PyTorch, on the layouts the
+kernels read) against the JAX references, and their gates.
 
 Inputs come from numpy with a seed. The JAX functions run through their
 non-Pallas references (``use_pallas=False`` / ``_reference``), the port's
@@ -25,17 +28,21 @@ from upscale_a_video_tpu.nn import blocks as jb
 from upscale_a_video_tpu.ops import fused_feedforward as j_ff
 from upscale_a_video_tpu.ops import fused_groupnorm as j_gn
 from upscale_a_video_tpu.ops import fused_temporal_attention as j_fta
+from upscale_a_video_tpu.ops import cross_attention_block as j_cab
 from upscale_a_video_tpu.ops import fused_temporal_resblock as j_res
+from upscale_a_video_tpu.ops import temporal_attention_block as j_tab
 from upscale_a_video_tpu.ops import temporal_conv as j_tc
 from upscale_a_video_tpu_torch.nn import attention as ta
 from upscale_a_video_tpu_torch.nn import blocks as tb
 from upscale_a_video_tpu_torch.ops import _cuda
+from upscale_a_video_tpu_torch.ops import cross_attention_block as t_cab
 from upscale_a_video_tpu_torch.ops import fused_feedforward as t_ff
 from upscale_a_video_tpu_torch.ops import fused_groupnorm as t_gn
 from upscale_a_video_tpu_torch.ops import fused_temporal_attention as t_fta
 from upscale_a_video_tpu_torch.ops import fused_temporal_resblock as t_res
 from upscale_a_video_tpu_torch.ops import temporal_attention_block as t_tab
 from upscale_a_video_tpu_torch.ops import temporal_conv as t_tc
+from upscale_a_video_tpu_torch.ops.rope import rotary_tables
 from upscale_a_video_tpu_torch.weights import flatten_tree, to_state_dict
 
 torch.set_num_threads(1)
@@ -435,3 +442,155 @@ def test_weight_operand_cache_follows_updates_and_loads():
     # a weight already in the kernel's dtype and layout is its own operand
     same = torch.ones(8, 8)
     assert _cuda.cached(same, "id", lambda t: t) is same
+
+
+# ------------------------- cross-attention and temporal attention blocks
+
+@pytest.mark.parametrize("skv,kp", [(77, 80), (77, 128), (80, 80), (100, 128), (5, 80)])
+def test_cross_attention_fold_in_the_kernel_layout(skv, kp):
+    """The fold as the kernel reads it ((H, B, Skv, C), each head's keys a
+    tile of kp rows, the rows past Skv zero) through the kernel's algorithm
+    (per head: scores over the kp keys with the padding masked, softmax, P
+    Vo, heads summed) matches JAX's fused_cross_attention_block on its
+    128-key layout, and the 80- and 128-key tiles give the same result.
+    Float32; tolerance: the same sums in another order."""
+    rng = np.random.default_rng(skv + kp)
+    c, heads, d = 64, 2, 32
+    x = rand(rng, 6, 20, c)
+    lw, lb = 1 + rand(rng, c, scale=0.1), rand(rng, c, scale=0.1)
+    wq, wo = rand(rng, c, c, scale=c ** -0.5), rand(rng, c, c, scale=c ** -0.5)
+    k, v, bo = rand(rng, 2, skv, c), rand(rng, 2, skv, c), rand(rng, c, scale=0.1)
+    want = j_cab.fused_cross_attention_block(x, lw, lb, wq, k, v, wo, bo, heads=heads,
+                                             dim_head=d, t_repeat=3, use_pallas=False,
+                                             add_residual=True)
+    mt, vo = t_cab.fold_keys(T(wq).t(), T(k), T(v), T(wo).t(), heads, d)
+    assert mt.shape == vo.shape == (heads, 2, skv, c)
+    m_kp, vo_kp = t_cab.key_tiles(mt, vo, kp)
+    got = t_cab.cross_attention_block_plain(T(x), T(lw), T(lb), m_kp, vo_kp, skv, T(bo), 3,
+                                            1e-5, True, kp=kp)
+    close(want, got, 2e-5)
+    m_128, vo_128 = t_cab.key_tiles(mt, vo, 128)
+    same = t_cab.cross_attention_block_plain(T(x), T(lw), T(lb), m_128, vo_128, skv, T(bo), 3,
+                                             1e-5, True)
+    close(same.numpy(), got, 2e-6)
+
+
+def _tab_decomposed(x, lw, lb, wq, wk, wv, wo, bo, bias, t, rot, eps, residual):
+    """Kernel 1 step by step in plain PyTorch on the (B*T*S, C) rows: LN,
+    the product with the stacked (3C, C) weight, q scaled, RoPE per column
+    pair (2i, 2i + 1) with the frame (row // S) % T, the attention of each
+    pixel over its T frames, the out-projection (+ residual)."""
+    bt, s, c = x.shape
+    heads = bias.shape[0]
+    d, m = c // heads, bt * s
+    rows = x.reshape(m, c)
+    hn = t_ff.layer_norm(rows, lw, lb, eps)
+    q, k, v = (hn @ t_tab.stacked_qkv(wq, wk, wv, torch.float32).t()).split(c, dim=1)
+    q = q * d ** -0.5
+    frame = (torch.arange(m) // s) % t
+    cos, sin = (a[frame][:, None, :] for a in rotary_tables(t, rot))
+
+    def rope(a):
+        a = a.reshape(m, heads, d).clone()
+        a0, a1 = a[..., 0:rot:2].clone(), a[..., 1:rot:2].clone()
+        a[..., 0:rot:2], a[..., 1:rot:2] = a0 * cos - a1 * sin, a1 * cos + a0 * sin
+        return a
+
+    per_pixel = lambda a: a.reshape(bt // t, t, s, heads, d)
+    q, k, v = per_pixel(rope(q)), per_pixel(rope(k)), per_pixel(v.reshape(m, heads, d))
+    scores = torch.einsum("bishd,bjshd->bshij", q, k) + bias[None, None]
+    o = torch.einsum("bshij,bjshd->bishd", torch.softmax(scores, dim=-1), v)
+    out = o.reshape(m, c) @ wo.t() + bo
+    return (out + rows if residual else out).reshape(bt, s, c)
+
+
+@pytest.mark.parametrize("t,s,c,heads,residual", [(8, 6, 128, 2, True), (4, 5, 64, 1, False),
+                                                   (2, 3, 128, 4, True)])
+def test_temporal_attention_block_decomposition(t, s, c, heads, residual):
+    """Kernel 1's decomposition matches JAX's ``_reference`` (float32; the
+    same sums in another order)."""
+    rng = np.random.default_rng(t * s + c)
+    x = rand(rng, 2 * t, s, c)
+    lw, lb = 1 + rand(rng, c, scale=0.1), rand(rng, c, scale=0.1)
+    wq, wk, wv, wo = (rand(rng, c, c, scale=c ** -0.5) for _ in range(4))
+    bo, bias = rand(rng, c, scale=0.1), rand(rng, heads, t, t)
+    rot = min(32, c // heads)
+    want = j_tab._reference(x, lw, lb, wq, wk, wv, wo, bo, bias, t, 32, 1e-5, residual)
+    got = _tab_decomposed(T(x), T(lw), T(lb), T(wq).t(), T(wk).t(), T(wv).t(), T(wo).t(),
+                          T(bo), T(bias), t, rot, 1e-5, residual)
+    close(want, got, 2e-5)
+
+
+def test_stacked_qkv_weight_follows_updates_and_loads():
+    """The stacked (3C, C) q/k/v operand is made once per version of the
+    three weights: an in-place update of any of them and ``load_state_dict``
+    give the new stack, and the cache adds no key to the state dict."""
+    torch.manual_seed(0)
+    m = ta.TemporalAttention(32, heads=2, dim_head=16)
+    keys = set(m.state_dict())
+    wq, wk, wv = m.to_q.weight, m.to_k.weight, m.to_v.weight
+    stack = lambda: t_tab.stacked_qkv(wq, wk, wv, torch.float32)
+    first = stack()
+    assert torch.equal(first, torch.cat([wq, wk, wv])) and first.shape == (96, 32)
+    assert stack() is first
+    with torch.no_grad():
+        wk.mul_(2.0)
+    second = stack()
+    assert second is not first and torch.equal(second[32:64], wk)
+    state = {k: v.clone() for k, v in m.state_dict().items()}
+    state["to_v.weight"].fill_(0.5)
+    m.load_state_dict(state, strict=True)
+    third = stack()
+    assert torch.all(third[64:] == 0.5) and torch.equal(third[:32], wq)
+    assert set(m.state_dict()) == keys
+
+
+def test_attention_block_gates_at_the_path_sites():
+    """Kernel 1 admits the three path-1 sites (T = 8) and refuses path 2's
+    T = 5 (the JAX gate's ROWS % t, so path 2 keeps the fused temporal
+    attention) and heads it is not built for (64 and 128 channels); kernel 3 admits the four
+    path sites and any token count, and refuses C = 1024 (as the JAX gate),
+    more than 128 keys and fp32."""
+    for s, c in ((1024, 512), (256, 512), (64, 1024)):
+        assert t_tab.temporal_attention_block_fits(torch.empty(32, s, c, **BF), 8, 8)
+    for s, c in ((3840, 512), (960, 512), (240, 1024)):
+        assert not t_tab.temporal_attention_block_fits(torch.empty(10, s, c, **BF), 5, 8)
+    x = torch.empty(32, 100, 512, **BF)
+    assert t_tab.temporal_attention_block_fits(x, 4, 8)       # any S, T | 128
+    assert t_tab.temporal_attention_block_fits(x, 16, 4)       # T = 16, heads of 128
+    assert not t_tab.temporal_attention_block_fits(x, 8, 8, rot_dim=21)  # an odd RoPE width
+    assert not t_tab.temporal_attention_block_fits(x, 8, 16)   # heads of 32
+    assert not t_tab.temporal_attention_block_fits(torch.empty(32, 100, 576, **BF), 8, 3)
+    assert not t_tab.temporal_attention_block_fits(torch.empty(32, 100, 512), 8, 8)
+    for bt, s in ((32, 1024), (32, 256), (10, 3840), (10, 960), (6, 100)):
+        assert t_cab.cross_attention_block_fits(torch.empty(bt, s, 512, **BF), 77, 8, 64)
+    assert not t_cab.cross_attention_block_fits(torch.empty(32, 64, 1024, **BF), 77, 8, 128)
+    assert not t_cab.cross_attention_block_fits(torch.empty(32, 64, 512, **BF), 129, 8, 64)
+    assert not t_cab.cross_attention_block_fits(torch.empty(32, 64, 512), 77, 8, 64)
+    assert not t_cab.cross_attention_block_fits(torch.empty(32, 64, 320, **BF), 77, 5, 64)
+
+
+def test_device_split_names_are_in_the_sources():
+    """Every name part by which the card check attributes a profiled
+    forward's device time occurs in the kernels' sources and names a port
+    kernel; the split sums each port kernel's device kernels and counts the
+    rest as PyTorch's."""
+    import types
+
+    import chip_smoke
+
+    text = "".join(p.read_text() for p in _cuda.sources())
+    for part, kernel in chip_smoke.DEVICE_KERNELS:
+        assert part in text and kernel in _cuda.KERNELS, part
+    ev = lambda key, us: types.SimpleNamespace(key=key, device_time_total=us)
+    events = [ev("void uav::(anonymous namespace)::cab_kernel<4, 80>(CUtensorMap_st)", 300.0),
+              ev("uav::(anonymous namespace)::tab_layernorm_kernel(__nv_bfloat16 const*)", 20.0),
+              ev("void uav::(anonymous namespace)::gemm_kernel<128, 192, uav::(anonymous "
+                 "namespace)::QkvAttnEpilogue<64> >(CUtensorMap_st)", 200.0),
+              ev("uav::(anonymous namespace)::layernorm_kernel(__nv_bfloat16 const*)", 10.0),
+              ev("nvjet_tst_128x80_64x8_1x2_h_bz_TNT", 5.0), ev("cudaLaunchKernel", 0.0)]
+    split, total = chip_smoke.device_split(types.SimpleNamespace(key_averages=lambda: events))
+    assert split == pytest.approx({"cross_attention_block": 300e-6,
+                                   "temporal_attention_block": 220e-6,
+                                   "fused_feedforward": 10e-6, "PyTorch": 5e-6})
+    assert total == pytest.approx(535e-6)

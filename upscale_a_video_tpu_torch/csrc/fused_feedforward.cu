@@ -22,6 +22,7 @@
 // core's B map reads; no reorder. Any number of rows: TMA zero-fills the last
 // tile and its stores are masked.
 #include "gemm_core.cuh"
+#include "layer_norm.cuh"
 
 namespace uav {
 namespace {
@@ -31,42 +32,12 @@ __device__ __forceinline__ float gelu_tanh(float g) {
   return 0.5f * g * (1.f + tanh_fast(k * (g + 0.044715f * g * g * g)));
 }
 
-// hn = bf16((x - mean) * rstd * w + b), var = E[x^2] - E[x]^2 as the reference;
-// one warp per row, 8 bf16 (16 bytes) per lane and step.
+// hn = bf16(LN(x)), one warp per row (layer_norm.cuh).
 __global__ void __launch_bounds__(kThreads)
 layernorm_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
                  const bf16* __restrict__ b, bf16* __restrict__ hn, int M, int C, float eps) {
-  const int row = blockIdx.x * kWarps + threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (row >= M) return;
-  const uint4* xr = (const uint4*)(x + (size_t)row * C);
-  uint4* hr = (uint4*)(hn + (size_t)row * C);
-  float s = 0.f, s2 = 0.f;
-  for (int v = lane; v < C / 8; v += 32) {
-    const uint4 u = xr[v];
-    const uint32_t p[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = unpack_bf16(p[i]);
-      s += f.x + f.y;
-      s2 += f.x * f.x + f.y * f.y;
-    }
-  }
-  s = warp_sum(s);
-  s2 = warp_sum(s2);
-  const float mu = s / C;
-  const float rs = rsqrtf(s2 / C - mu * mu + eps);
-  for (int v = lane; v < C / 8; v += 32) {
-    const uint4 u = xr[v], wu = ((const uint4*)w)[v], bu = ((const uint4*)b)[v];
-    const uint32_t p[4] = {u.x, u.y, u.z, u.w}, pw[4] = {wu.x, wu.y, wu.z, wu.w},
-                   pb[4] = {bu.x, bu.y, bu.z, bu.w};
-    uint32_t o[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = unpack_bf16(p[i]), fw = unpack_bf16(pw[i]), fb = unpack_bf16(pb[i]);
-      o[i] = pack_bf16((f.x - mu) * rs * fw.x + fb.x, (f.y - mu) * rs * fw.y + fb.y);
-    }
-    hr[v] = make_uint4(o[0], o[1], o[2], o[3]);
-  }
+  const int row = blockIdx.x * kWarps + threadIdx.x / 32;
+  if (row < M) layernorm_row(x, w, b, hn, row, C, eps);
 }
 
 // GEMM1's epilogue: the tile's columns [n0, n0 + BN) of hn @ w1^T are the

@@ -1,7 +1,8 @@
 // The GEMM core of the port's TMA + wgmma matrix kernels: the temporal conv
 // (temporal_conv.cu), the temporal resblock's two convs
-// (fused_temporal_resblock.cu) and the feed-forward's two products
-// (fused_feedforward.cu).
+// (fused_temporal_resblock.cu), the feed-forward's two products
+// (fused_feedforward.cu) and the temporal attention block's two
+// (temporal_attention_block.cu).
 //
 // The problem is a SAME-T (k,1,1) temporal convolution on channels-last bf16
 // rows, out[f] = sum_i A[f + i - pad] @ W_i^T for the frames f = b*T + t of
@@ -42,6 +43,16 @@
 //              thread holds h and g of the same output column (the
 //              feed-forward's h * gelu(g)); each warpgroup's WN columns are
 //              WN/2 of h, then WN/2 of g.
+//   kBParts    (optional, 1 if absent) B is loaded as kBParts boxes of
+//              BN / kBParts rows, rows p * Cout / kBParts + n0 / kBParts + j
+//              of W for part p: the tile's columns are the same columns of
+//              each part (the temporal attention block's q, k and v of one
+//              head).
+//   kPixelTiles (optional, false if absent) a tile is BM / T pixels of all T
+//              frames of one sample, one TMA box of 64 x BM/T x T, frame-major
+//              rows (the temporal attention block's frame attention needs all
+//              frames of a pixel); tl.f is the sample's first frame, tl.m0 its
+//              first pixel. k must be 1.
 //   kSmem      bytes of shared scratch the epilogue uses.
 //   prologue(b, a, d)  the sample's affine (kPrologue only).
 //   operator()         the epilogue: each consumer thread's kWN / 2
@@ -50,14 +61,33 @@
 //              barrier 1): every consumer walks the same tiles.
 #pragma once
 
+#include <type_traits>
+
 #include "hopper.cuh"
 
 namespace uav {
 namespace {
 
 constexpr int kBK = 64;        // input channels per stage: one 128-byte swizzled row
-constexpr int kStages = 4;
 constexpr int kConsumers = 2;  // warpgroups
+
+// The optional policies of an Epi class (see above), with their defaults.
+template <class E, class = void>
+struct BParts {
+  static constexpr int value = 1;
+};
+template <class E>
+struct BParts<E, std::void_t<decltype(E::kBParts)>> {
+  static constexpr int value = E::kBParts;
+};
+template <class E, class = void>
+struct PixelTiles {
+  static constexpr bool value = false;
+};
+template <class E>
+struct PixelTiles<E, std::void_t<decltype(E::kPixelTiles)>> {
+  static constexpr bool value = E::kPixelTiles;
+};
 
 // Threads of a block: the two consumer warpgroups, and one producer warp
 // unless the A operand goes through the prologue. ptxas sizes a block for
@@ -75,11 +105,14 @@ struct GemmTile {
   static constexpr int kWN = BM == 128 ? BN : BN / 2;  // channels of one warpgroup
   static constexpr uint32_t kABytes = BM * kBK * 2;
   static constexpr uint32_t kBBytes = BN * kBK * 2;
+  // four stages, or three where four would leave an epilogue too little room
+  static constexpr int kStages = 4 * (kABytes + kBBytes) <= 200 * 1024 ? 4 : 3;
   static constexpr size_t kRing = 1024 + kStages * (kABytes + kBBytes) + 2 * kStages * 8;
 };
 
 struct ConvShape {
   int T, HW, Cin, Cout, K, m_tiles, n_tiles, k_chunks, tiles;
+  int mrows, fstep;  // rows of a frame per tile, frames per tile step (1, or T: pixel tiles)
 };
 
 struct Tile {
@@ -101,7 +134,8 @@ __device__ __forceinline__ Tile tile_at(const ConvShape& s, int idx) {
   const int rest = idx / s.n_tiles;
   tl.n0 = (idx - rest * s.n_tiles) * BN;
   tl.f = rest / s.m_tiles;
-  tl.m0 = (rest - tl.f * s.m_tiles) * BM;
+  tl.m0 = (rest - tl.f * s.m_tiles) * s.mrows;
+  tl.f *= s.fstep;
   const int t = tl.f % s.T, pad = (s.K - 1) / 2;
   tl.lo = max(0, pad - t);
   tl.hi = min(s.K, s.T + pad - t);
@@ -140,19 +174,20 @@ struct LoadCursor {
 
 // Issue the cursor's load into its ring stage, once the consumers have
 // released the stage, and move the cursor on.
-template <int BM, int BN, bool kGeglu>
+template <int BM, int BN, class Epi>
 __device__ __forceinline__ void issue_load(LoadCursor<BM, BN>& c, const ConvShape& s,
                                            const CUtensorMap* amap, const CUtensorMap* bmap,
                                            unsigned char* a_s, unsigned char* b_s,
                                            uint64_t* full, uint64_t* empty) {
   using G = GemmTile<BM, BN>;
+  constexpr int kStages = G::kStages, kParts = BParts<Epi>::value;
   const int st = c.n % kStages;
   mbar_wait(&empty[st], ((c.n / kStages) & 1) ^ 1);
   mbar_expect_tx(&full[st], G::kABytes + G::kBBytes);
   tma_load_3d(a_s + st * G::kABytes, amap, &full[st], c.kc * kBK, c.tl.m0,
               c.tl.f + c.i - (s.K - 1) / 2);
   unsigned char* b_dst = b_s + st * G::kBBytes;
-  if constexpr (kGeglu) {
+  if constexpr (Epi::kGeglu) {
     constexpr int kWN = G::kWN, kH = kWN / 2;  // one box: kH rows of h or of g
 #pragma unroll
     for (int sl = 0; sl < BN / kWN; ++sl) {
@@ -161,6 +196,12 @@ __device__ __forceinline__ void issue_load(LoadCursor<BM, BN>& c, const ConvShap
       tma_load_3d(b_dst + (sl * kWN + kH) * 128, bmap, &full[st], c.kc * kBK, s.Cout / 2 + row,
                   c.i);
     }
+  } else if constexpr (kParts > 1) {
+    constexpr int kR = BN / kParts;
+#pragma unroll
+    for (int p = 0; p < kParts; ++p)
+      tma_load_3d(b_dst + p * kR * 128, bmap, &full[st], c.kc * kBK,
+                  p * (s.Cout / kParts) + c.tl.n0 / kParts, c.i);
   } else {
     tma_load_3d(b_dst, bmap, &full[st], c.kc * kBK, c.tl.n0, c.i);
   }
@@ -196,7 +237,7 @@ gemm_kernel(const __grid_constant__ CUtensorMap amap, const __grid_constant__ CU
             const Epi epi, const ConvShape s) {
   using G = GemmTile<BM, BN>;
   constexpr uint32_t kABytes = G::kABytes, kBBytes = G::kBBytes;
-  constexpr int kWN = G::kWN;
+  constexpr int kWN = G::kWN, kStages = G::kStages;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* a_s = (unsigned char*)(((uintptr_t)smem_raw + 1023) & ~(uintptr_t)1023);
   unsigned char* b_s = a_s + kStages * kABytes;
@@ -218,7 +259,7 @@ gemm_kernel(const __grid_constant__ CUtensorMap amap, const __grid_constant__ CU
     if (threadIdx.x == kConsumers * 128) {
       LoadCursor<BM, BN> c;
       for (c.start(s); c.more;)
-        issue_load<BM, BN, Epi::kGeglu>(c, s, &amap, &bmap, a_s, b_s, full, empty);
+        issue_load<BM, BN, Epi>(c, s, &amap, &bmap, a_s, b_s, full, empty);
     }
     return;
   }
@@ -236,7 +277,6 @@ gemm_kernel(const __grid_constant__ CUtensorMap amap, const __grid_constant__ CU
   const int ldm_r = row_off + warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
   const uint32_t ldm_base = smem_u32(a_s) + ldm_r * 128;
   const int ldm_k = lane >> 4, ldm_sw = lane & 7;
-  float acc[kWN / 2];
   int it = 0;
   const bool loader = Epi::kPrologue && threadIdx.x == 0;
   LoadCursor<BM, BN> ld;
@@ -244,12 +284,18 @@ gemm_kernel(const __grid_constant__ CUtensorMap amap, const __grid_constant__ CU
   for (int idx = blockIdx.x; idx < s.tiles; idx += gridDim.x) {
     const Tile tl = tile_at<BM, BN>(s, idx);
     const int nk = (tl.hi - tl.lo) * s.k_chunks;
+    // per tile, so that the accumulators are dead once the epilogue has read
+    // them (the wgmma operands are read-write: one array across tiles would
+    // stay live through every epilogue)
+    float acc[kWN / 2];
+#pragma unroll
+    for (int i = 0; i < kWN / 2; ++i) acc[i] = 0.f;
     if constexpr (Epi::kPrologue) {
       // no producer warp: thread 0 keeps the ring filled, one step behind the
       // products so that both warpgroups have released the stage it refills
       if (loader && idx == blockIdx.x)
         while (ld.more && ld.n < kStages)
-          issue_load<BM, BN, Epi::kGeglu>(ld, s, &amap, &bmap, a_s, b_s, full, empty);
+          issue_load<BM, BN, Epi>(ld, s, &amap, &bmap, a_s, b_s, full, empty);
       const float *av, *dv;
       epi.prologue(tl.f / s.T, av, dv);
       av += fr.quad;
@@ -288,7 +334,7 @@ gemm_kernel(const __grid_constant__ CUtensorMap amap, const __grid_constant__ CU
           if (half == 0 && step > 0) {  // the previous step's stage is free
             if (lane == 0) mbar_arrive(&empty[(it - 1) % kStages]);
             if (loader && ld.more && ld.n <= it + kStages - 1)
-              issue_load<BM, BN, Epi::kGeglu>(ld, s, &amap, &bmap, a_s, b_s, full, empty);
+              issue_load<BM, BN, Epi>(ld, s, &amap, &bmap, a_s, b_s, full, empty);
           }
         }
         if (++kc == s.k_chunks) kc = 0;
@@ -297,7 +343,7 @@ gemm_kernel(const __grid_constant__ CUtensorMap amap, const __grid_constant__ CU
       fence_regs(acc);
       if (lane == 0) mbar_arrive(&empty[(it - 1) % kStages]);
       if (loader && ld.more && ld.n <= it + kStages - 1)
-        issue_load<BM, BN, Epi::kGeglu>(ld, s, &amap, &bmap, a_s, b_s, full, empty);
+        issue_load<BM, BN, Epi>(ld, s, &amap, &bmap, a_s, b_s, full, empty);
     } else {
       for (int step = 0; step < nk; ++step, ++it) {
         const int st = it % kStages;
@@ -322,15 +368,19 @@ gemm_kernel(const __grid_constant__ CUtensorMap amap, const __grid_constant__ CU
 
 // A: (frames, HW, Cin) bf16; B: (K, Cout, Cin) bf16, tap major; both
 // 16-byte aligned with Cin a multiple of 8. frames = batch * T.
+// With kPixelTiles, T must divide BM and K be 1.
 template <int BM, int BN, class Epi>
 int launch_gemm(const void* a, const void* b, int frames, int T, int HW, int Cin, int Cout, int K,
                 const Epi& epi, cudaStream_t stream) {
   using G = GemmTile<BM, BN>;
+  constexpr bool kPixels = PixelTiles<Epi>::value;
+  const int depth = kPixels ? T : 1, mrows = BM / depth;
   CUtensorMap amap, bmap;
-  int e = make_map_3d(&amap, a, Cin, HW, frames, (uint64_t)Cin * 2, (uint64_t)HW * Cin * 2, BM);
+  int e = make_map_3d(&amap, a, Cin, HW, frames, (uint64_t)Cin * 2, (uint64_t)HW * Cin * 2, mrows,
+                      depth);
   if (e) return e;
   e = make_map_3d(&bmap, b, Cin, Cout, K, (uint64_t)Cin * 2, (uint64_t)Cout * Cin * 2,
-                  Epi::kGeglu ? G::kWN / 2 : BN);
+                  Epi::kGeglu ? G::kWN / 2 : BN / BParts<Epi>::value);
   if (e) return e;
   ConvShape s;
   s.T = T;
@@ -338,10 +388,12 @@ int launch_gemm(const void* a, const void* b, int frames, int T, int HW, int Cin
   s.Cin = Cin;
   s.Cout = Cout;
   s.K = K;
-  s.m_tiles = (HW + BM - 1) / BM;
+  s.mrows = mrows;
+  s.fstep = depth;
+  s.m_tiles = (HW + mrows - 1) / mrows;
   s.n_tiles = (Cout + BN - 1) / BN;
   s.k_chunks = (Cin + kBK - 1) / kBK;
-  s.tiles = frames * s.m_tiles * s.n_tiles;
+  s.tiles = frames / depth * s.m_tiles * s.n_tiles;
   const size_t smem = G::kRing + Epi::kSmem;
   UAV_RETURN_IF(set_smem(gemm_kernel<BM, BN, Epi>, smem));
   const int grid = s.tiles < sm_count() ? s.tiles : sm_count();
@@ -351,6 +403,10 @@ int launch_gemm(const void* a, const void* b, int frames, int T, int HW, int Cin
 
 // The plain epilogue: out = acc + bias (+ res), rounded once to bf16, rows
 // past HW masked; bias and res may be null. out and res: (frames, HW, Cout).
+// The bias and residual of four column groups are loaded before any of
+// their stores: a store could alias a later load, so loads placed between
+// stores would each wait out the one before (four: more spill at 128 x 256
+// under the producer warp's 168 registers).
 struct BiasEpilogue {
   static constexpr bool kPrologue = false, kGeglu = false;
   static constexpr size_t kSmem = 0;
@@ -362,25 +418,39 @@ struct BiasEpilogue {
   __device__ __forceinline__ void operator()(const ConvShape& s, const Tile& tl,
                                              float (&acc)[NA], const Frag& fr,
                                              unsigned char*) const {
+    constexpr int kJ = NA / 4, kChunk = 4;
     const int r0 = tl.m0 + fr.row;
     const size_t base = (size_t)tl.f * s.HW * s.Cout;
 #pragma unroll
-    for (int j = 0; j < NA / 4; ++j) {
-      const int col = tl.n0 + fr.col_off + j * 8 + fr.quad;
-      if (col < s.Cout) {
-        const float b0 = bias ? to_f(bias[col]) : 0.f, b1 = bias ? to_f(bias[col + 1]) : 0.f;
+    for (int j0 = 0; j0 < kJ; j0 += kChunk) {
+      uint32_t bv[kChunk], xv[kChunk][2];  // bf16 pairs
+#pragma unroll
+      for (int jj = 0; jj < kChunk; ++jj) {
+        const int col = tl.n0 + fr.col_off + (j0 + jj) * 8 + fr.quad;
+        const bool ok = col < s.Cout;
+        bv[jj] = bias && ok ? *(const uint32_t*)(bias + col) : 0u;
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int r = r0 + 8 * h;
-          if (r < s.HW) {
-            const size_t off = base + (size_t)r * s.Cout + col;
-            float v0 = acc[4 * j + 2 * h] + b0, v1 = acc[4 * j + 2 * h + 1] + b1;
-            if (res) {
-              const float2 x = __bfloat1622float2(*(const __nv_bfloat162*)(res + off));
-              v0 += x.x;
-              v1 += x.y;
+          xv[jj][h] = res && ok && r < s.HW
+                          ? *(const uint32_t*)(res + base + (size_t)r * s.Cout + col)
+                          : 0u;
+        }
+      }
+#pragma unroll
+      for (int jj = 0; jj < kChunk; ++jj) {
+        const int j = j0 + jj;
+        const int col = tl.n0 + fr.col_off + j * 8 + fr.quad;
+        if (col < s.Cout) {
+          const float2 b = unpack_bf16(bv[jj]);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = r0 + 8 * h;
+            if (r < s.HW) {
+              const float2 x = unpack_bf16(xv[jj][h]);
+              *(__nv_bfloat162*)(out + base + (size_t)r * s.Cout + col) = __floats2bfloat162_rn(
+                  acc[4 * j + 2 * h] + b.x + x.x, acc[4 * j + 2 * h + 1] + b.y + x.y);
             }
-            *(__nv_bfloat162*)(out + off) = __floats2bfloat162_rn(v0, v1);
           }
         }
       }

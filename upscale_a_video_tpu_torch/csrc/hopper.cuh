@@ -1,8 +1,8 @@
 // Hopper building blocks of the TMA + wgmma kernels (gemm_core.cuh,
-// flash_attention.cu), in raw PTX: mbarriers, TMA tile loads, 128-byte
-// swizzled shared-memory descriptors, ldmatrix, the wgmma instructions and
-// named barriers; on the host, the tensor-map encode, reached through the
-// runtime's driver entry point (no -lcuda).
+// flash_attention.cu, cross_attention_block.cu), in raw PTX: mbarriers, TMA
+// tile loads, 128-byte swizzled shared-memory descriptors, ldmatrix, the
+// wgmma instructions and named barriers; on the host, the tensor-map encode,
+// reached through the runtime's driver entry point (no -lcuda).
 //
 // Registers: wgmma wants its warpgroups aligned (warps 0-3, 4-7), and ptxas
 // allocates registers per four warps and sizes a block for the count at
@@ -122,6 +122,18 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
 }
 
+template <int M, int N>
+__device__ __forceinline__ void fence_regs(float (&r)[M][N]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i) fence_regs(r[i]);
+}
+
+// Make this thread's ordinary shared-memory writes visible to the async
+// proxy (a wgmma or TMA that reads them next, after a barrier).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 __device__ __forceinline__ void named_bar_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
@@ -222,6 +234,29 @@ struct Wgmma<64> {
 };
 
 template <>
+struct Wgmma<80> {
+  // D(64x80, fp32) (+)= A(64x16, smem) * B(16x80, smem), both K-major.
+  static __device__ __forceinline__ void ss(float (&d)[40], uint64_t a, uint64_t b, int acc) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39}, "
+      "%40, %41, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "l"(a), "l"(b), "r"(acc));
+  }
+};
+
+template <>
 struct Wgmma<128> {
   // D(64x128, fp32) (+)= A(64x16, smem) * B(16x128, smem), both K-major.
   static __device__ __forceinline__ void ss(float (&d)[64], uint64_t a, uint64_t b, int acc) {
@@ -275,6 +310,42 @@ struct Wgmma<128> {
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc), "n"(TB));
+  }
+};
+
+template <>
+struct Wgmma<192> {
+  // D(64x192, fp32) (+)= A(64x16, smem) * B(16x192, smem), both K-major.
+  static __device__ __forceinline__ void ss(float (&d)[96], uint64_t a, uint64_t b, int acc) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
+      "%96, %97, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "l"(a), "l"(b), "r"(acc));
   }
 };
 
@@ -391,16 +462,17 @@ inline EncodeTiledFn encode_tiled() {
 }
 
 // A bf16 (d0, d1, d2) tensor, innermost first, with byte strides s1, s2 of
-// dims 1 and 2, read in boxes of 64 x rows x 1 with 128-byte swizzle and
-// zero fill. The base and the strides must be 16-byte aligned.
+// dims 1 and 2, read in boxes of 64 x rows x depth with 128-byte swizzle and
+// zero fill (a box lands as depth x rows rows of 128 bytes). The base and the
+// strides must be 16-byte aligned.
 inline int make_map_3d(CUtensorMap* map, const void* base, uint64_t d0, uint64_t d1, uint64_t d2,
-                       uint64_t s1, uint64_t s2, uint32_t rows) {
+                       uint64_t s1, uint64_t s2, uint32_t rows, uint32_t depth = 1) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return kTmaEncodeError;
   if ((uintptr_t)base % 16 || s1 % 16 || s2 % 16) return (int)cudaErrorMisalignedAddress;
   const cuuint64_t dims[3] = {d0, d1, d2};
   const cuuint64_t strides[2] = {s1, s2};
-  const cuuint32_t box[3] = {64, rows, 1};
+  const cuuint32_t box[3] = {64, rows, depth};
   const cuuint32_t elem[3] = {1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,

@@ -42,7 +42,7 @@ SHAPES: Dict[str, Dict[Tuple, int]] = {name: {} for name in KERNELS}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "uav_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
-    "uav_temporal_attention_block": [_P] * 12 + [_I] * 7 + [_F, _I, _P],
+    "uav_temporal_attention_block": [_P] * 12 + [_I] * 6 + [_F, _I, _P],
     "uav_cross_attention_block": [_P] * 7 + [_I] * 6 + [_F, _I, _P],
     "uav_fused_feedforward": [_P] * 10 + [_I, _I, _F, _I, _P],
     "uav_gn_partials": [_P, _P, _I, _I, _I, _I, _P],
@@ -153,7 +153,7 @@ def ptr(t: Optional[torch.Tensor]):
 
 def operand(t: torch.Tensor, dtype: torch.dtype, name: str) -> torch.Tensor:
     """A kernel operand on the card: right dtype, contiguous and 32-byte
-    aligned (WMMA fragment loads need it). Raises for a CPU tensor or a
+    aligned. Raises for a CPU tensor or a
     wrong dtype; copies a strided or misaligned view."""
     if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
@@ -176,15 +176,16 @@ def tma_operand(t: torch.Tensor, name: str) -> torch.Tensor:
     return t
 
 
-def cached(t: torch.Tensor, key: str, make: Callable[[torch.Tensor], torch.Tensor]
-           ) -> torch.Tensor:
+def cached(t: torch.Tensor, key: str, make: Callable[[torch.Tensor], torch.Tensor],
+           also: Tuple[torch.Tensor, ...] = ()) -> torch.Tensor:
     """``make(t)``, converted once per version of ``t``: kept on the tensor
     itself (an attribute, so outside every ``state_dict``) and made again
     when ``t`` has another storage (``data_ptr``) or was written in place
     (``_version``, which ``load_state_dict``'s copy also advances). For
-    weight operands that a kernel wants in another layout or dtype."""
+    weight operands that a kernel wants in another layout or dtype; ``make``
+    may also read the tensors ``also``, whose versions count as ``t``'s."""
     store = t.__dict__.setdefault("_uav_cached", {})
-    stamp = (t.data_ptr(), t._version)
+    stamp = tuple((u.data_ptr(), u._version) for u in (t, *also))
     hit = store.get(key)
     if hit is None or hit[0] != stamp:
         out = make(t)

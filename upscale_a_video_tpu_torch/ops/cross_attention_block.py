@@ -4,48 +4,72 @@ Replaces ``upscale_a_video_tpu/ops/cross_attention_block.py::
 fused_cross_attention_block`` (Pallas ``_kernel``); the CUDA kernel is
 ``csrc/cross_attention_block.cu``. As in the reference, the q-projection is
 folded into the keys (``M = Wq·Kᵀ``) and the out-projection into the values
-(``Vo = blockdiag(V)·Wo``) per clip, outside the kernel; the kernel runs
-LN, the two products and the per-head softmax for every token.
+(``Vo = blockdiag(V)·Wo``) per clip and per call, outside the kernel
+(:func:`fold_keys`, two batched products; the text context is step- and
+frame-invariant and the fold is small). The kernel runs LN, the two products
+and the per-head softmax for every token, flash-attention style on TMA +
+``wgmma``, reading each head's keys as a tile of 80 (at most 80 keys, as
+CLIP's 77) or 128, the padding zero-filled and masked. The plain version
+keeps the reference's 128-key layout (:func:`fold`).
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from . import _cuda
 from .fused_feedforward import layer_norm
 
 SKV_PAD = 128
+KERNEL_WIDTHS = (128, 256, 384, 512)  # C the kernel is built for
+
+
+def fold_keys(wq, k, v, wo, heads: int, dim_head: int):
+    """torch Linear weights wq (H·D, C), wo (C, H·D) and projected k/v
+    (B, Skv, H·D) → Mt and Vo, both (H, B, Skv, C) in k's dtype: Mt[h, b, j]
+    is key j of head h through the scaled q-projection, Vo[h, b, j] value j
+    through the out-projection. Two batched products over the heads, on
+    strided views of k, v and the weights, each rounded once (the scale is
+    applied to the fp32 sum). The kernel reads each (h, b) as one box of 80
+    rows (Skv <= 80) or 128, TMA zero-filling the rows past Skv."""
+    b, skv, _ = k.shape
+    c = wq.shape[1]
+    kh = k.reshape(b * skv, heads, dim_head).transpose(0, 1)  # (H, B·Skv, D)
+    vh = v.reshape(b * skv, heads, dim_head).transpose(0, 1)
+    wq_h = wq.to(k.dtype).reshape(heads, dim_head, c)          # [h, d, c] = wq[h·D + d, c]
+    wo_h = wo.to(v.dtype).t().reshape(heads, dim_head, c)      # [h, d, c] = wo[c, h·D + d]
+    mt = torch.baddbmm(kh.new_empty(()), kh, wq_h, beta=0, alpha=dim_head ** -0.5)
+    vo = torch.bmm(vh, wo_h)
+    return mt.reshape(heads, b, skv, c), vo.reshape(heads, b, skv, c)
+
+
+def key_tiles(mt, vo, kp: int):
+    """Mt and Vo of :func:`fold_keys` with each head's keys zero-padded to
+    kp, in the plain version's layout: M (B, C, H·kp), Vo (B, H·kp, C)."""
+    heads, b, skv, c = mt.shape
+    pad = lambda a: F.pad(a, (0, 0, 0, kp - skv)).permute(1, 0, 2, 3)  # (B, H, kp, C)
+    return pad(mt).reshape(b, heads * kp, c).transpose(1, 2), pad(vo).reshape(b, heads * kp, c)
 
 
 def fold(wq, k, v, wo, heads: int, dim_head: int):
-    """torch Linear weights wq (H·D, C), wo (C, H·D) and projected k/v
-    (B, Skv, H·D) → M (B, C, H·128) and Vo (B, H·128, C), keys zero-padded."""
-    b, skv, _ = k.shape
-    c = wq.shape[1]
-    scale = dim_head ** -0.5
-    wq_h = wq.float().t().reshape(c, heads, dim_head) * scale
-    kh = k.float().reshape(b, skv, heads, dim_head)
-    m = torch.einsum("chd,bkhd->bchk", wq_h, kh)
-    m = torch.nn.functional.pad(m, (0, SKV_PAD - skv)).reshape(b, c, heads * SKV_PAD)
-    vh = v.float().reshape(b, skv, heads, dim_head)
-    wo_h = wo.float().t().reshape(heads, dim_head, c)
-    vo = torch.einsum("bkhd,hdc->bhkc", vh, wo_h)
-    vo = torch.nn.functional.pad(vo, (0, 0, 0, SKV_PAD - skv)).reshape(b, heads * SKV_PAD, c)
-    return m, vo
+    """The reference's layout, 128 keys a head: M (B, C, H·128), Vo (B, H·128, C)."""
+    return key_tiles(*fold_keys(wq, k, v, wo, heads, dim_head), SKV_PAD)
 
 
 def cross_attention_block_plain(x, ln_w, ln_b, m, vo, skv: int, bo, t_repeat: int,
-                                eps: float = 1e-5, add_residual: bool = False):
-    """The reference's ``_reference`` on the folded form."""
+                                eps: float = 1e-5, add_residual: bool = False,
+                                kp: int = SKV_PAD):
+    """The reference's ``_reference`` on the folded form, m (B, C, H·kp),
+    vo (B, H·kp, C); keys ≥ skv of each head masked."""
     bt, s, c = x.shape
     hk = m.shape[-1]
-    heads = hk // SKV_PAD
+    heads = hk // kp
     hn = layer_norm(x, ln_w, ln_b, eps)
     m_rep = m.repeat_interleave(t_repeat, dim=0).to(x.dtype)
     vo_rep = vo.repeat_interleave(t_repeat, dim=0).to(x.dtype)
-    scores = torch.matmul(hn.float(), m_rep.float()).reshape(bt, s, heads, SKV_PAD)
-    valid = torch.arange(SKV_PAD, device=x.device) < skv
+    scores = torch.matmul(hn.float(), m_rep.float()).reshape(bt, s, heads, kp)
+    valid = torch.arange(kp, device=x.device) < skv
     scores = scores.masked_fill(~valid, float("-inf"))
     scores = scores - scores.amax(dim=-1, keepdim=True)
     probs = torch.softmax(scores, dim=-1).reshape(bt, s, hk).to(x.dtype)
@@ -56,9 +80,12 @@ def cross_attention_block_plain(x, ln_w, ln_b, m, vo, skv: int, bo, t_repeat: in
 
 
 def cross_attention_block_fits(x: torch.Tensor, skv: int, heads: int, dim_head: int) -> bool:
+    """bf16, at most 128 keys, C in KERNEL_WIDTHS (the JAX gate's c % 128 and
+    c <= 512) and ``heads·dim_head == C``; any number of tokens (TMA
+    zero-fills the last row tile, whose stores are masked)."""
     bt, s, c = x.shape
-    return (x.dtype == torch.bfloat16 and skv <= SKV_PAD and heads * dim_head == c
-            and c % 16 == 0 and c <= 512 and s % 32 == 0)
+    return (x.dtype == torch.bfloat16 and 1 <= skv <= SKV_PAD and heads * dim_head == c
+            and c in KERNEL_WIDTHS and s >= 1)
 
 
 def fused_cross_attention_block(x, ln_w, ln_b, wq, k, v, wo, bo, *, heads: int, dim_head: int,
@@ -69,19 +96,22 @@ def fused_cross_attention_block(x, ln_w, ln_b, wq, k, v, wo, bo, *, heads: int, 
     b, skv, _ = k.shape
     if bt != b * t_repeat:
         raise ValueError(f"x batch {bt} is not the context batch {b} x t_repeat {t_repeat}")
-    m, vo = fold(wq, k, v, wo, heads, dim_head)
     if not x.is_cuda:
+        m, vo = fold(wq, k, v, wo, heads, dim_head)
         return cross_attention_block_plain(x, ln_w, ln_b, m, vo, skv, bo, t_repeat, eps,
                                            add_residual)
+    if not cross_attention_block_fits(x, skv, heads, dim_head):
+        raise ValueError(f"cross_attention_block: unsupported x {tuple(x.shape)} {x.dtype}, "
+                         f"{skv} keys, {heads} x {dim_head} heads")
     bf = torch.bfloat16
-    xf = _cuda.operand(x, bf, "x")
-    m = _cuda.operand(m.to(bf), bf, "m")
-    vo = _cuda.operand(vo.to(bf), bf, "vo")
-    lnw, lnb, bof = (_cuda.operand(t, bf, n) for t, n in ((ln_w, "ln_w"), (ln_b, "ln_b"),
-                                                           (bo, "bo")))
+    mt, vo = (_cuda.tma_operand(a, n)
+              for a, n in zip(fold_keys(wq, k, v, wo, heads, dim_head), ("mt", "vo")))
+    xf = _cuda.tma_operand(x, "x")
+    lnw, lnb, bof = (_cuda.weight(t, bf, n) for t, n in ((ln_w, "ln_w"), (ln_b, "ln_b"),
+                                                          (bo, "bo")))
     out = torch.empty_like(xf)
     rc = _cuda.lib().uav_cross_attention_block(
-        xf.data_ptr(), lnw.data_ptr(), lnb.data_ptr(), m.data_ptr(), vo.data_ptr(),
+        xf.data_ptr(), lnw.data_ptr(), lnb.data_ptr(), mt.data_ptr(), vo.data_ptr(),
         bof.data_ptr(), out.data_ptr(), bt, s, c, heads, skv, t_repeat, float(eps),
         int(add_residual), _cuda.stream_ptr(x.device))
     _cuda.check(rc, "cross_attention_block")

@@ -1,20 +1,26 @@
-"""Temporal attention step of a transformer block in one kernel: LN → q/k/v
-→ RoPE (q pre-scaled) → T-frame attention with the T5 bias → out-proj
-(+ residual), in the native (B·T, S, C) token layout.
+"""Temporal attention step of a transformer block: LN → q/k/v → RoPE (q
+pre-scaled) → T-frame attention with the T5 bias → out-proj (+ residual), in
+the native (B·T, S, C) token layout.
 
 Replaces ``upscale_a_video_tpu/ops/temporal_attention_block.py::
-fused_temporal_attention_block`` (Pallas ``_kernel``); the CUDA kernel is
-``csrc/temporal_attention_block.cu``.
+fused_temporal_attention_block`` (Pallas ``_kernel``); the CUDA kernels are
+``csrc/temporal_attention_block.cu``: a LayerNorm pass, the q/k/v product
+of each head against the stacked (3C, C) weight on the GEMM core for tiles
+of r pixels x all T frames, whose epilogue scales, rotates and runs the
+T-frame attention in shared memory (q, k and v never reach device memory),
+and the out-projection on the GEMM core with bias and residual.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
 
 from . import _cuda
 from .fused_feedforward import layer_norm
-from .fused_temporal_attention import temporal_attention_plain
+from .fused_temporal_attention import MAX_T, temporal_attention_plain
 from .rope import apply_rotary, rotary_tables
 
 
@@ -43,24 +49,36 @@ def temporal_attention_block_plain(x, ln_w, ln_b, wq, wk, wv, wo, bo, bias_htt,
     return delta + x if add_residual else delta
 
 
-def _rows(c: int) -> int:
-    return max(16, min(128, 32768 // c))
+ROWS = 128  # the JAX kernel's row tile: it takes T that divide it, so does this gate
+HEAD_WIDTHS = (64, 128)  # head widths the kernel is built for
 
 
-def _pixels_per_block(s: int, t: int, c: int) -> int:
-    rows = _rows(c)
-    r = rows // t if rows % t == 0 else 0
-    return r if r and s % r == 0 and (r * t) in (16, 32, 64, 128) else 0
+def stacked_qkv(wq, wk, wv, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """The q/k/v product's B operand: the torch Linear weights stacked,
+    (3C, C) in ``dtype``, made once per version of the three weights (kept
+    on ``wq``, :func:`_cuda.cached`): they are parameters."""
+    return _cuda.cached(wq, f"qkv:{dtype}",
+                        lambda w: torch.cat([w, wk, wv]).to(dtype).contiguous(), also=(wk, wv))
+
+
+@functools.lru_cache(maxsize=8)
+def rope_operands(t: int, rot: int, device: torch.device):
+    """(T, rot/2) fp32 cos and sin on the card, made once per (T, rot, device)."""
+    return tuple(_cuda.operand(a, torch.float32, "rope")
+                 for a in rotary_tables(t, rot, device=device))
 
 
 def temporal_attention_block_fits(x: torch.Tensor, video_length: int, heads: int,
                                   rot_dim: int = 32) -> bool:
+    """bf16, C a multiple of 64, heads of 64 or 128 channels (the JAX gate's
+    64-multiples that the kernel is built for), and T a divisor of 128 up to
+    16 (the JAX gate's ``ROWS % t``: T = 5 goes to the module path and its
+    fused temporal attention, as in the JAX package); any S."""
     bt, s, c = x.shape
     t = video_length
-    if x.dtype != torch.bfloat16 or bt % t or t > 16 or c % heads or c % 64:
+    if x.dtype != torch.bfloat16 or bt % t or c % heads or c % 64 or t > MAX_T or ROWS % t:
         return False
-    d = c // heads
-    return d % 16 == 0 and min(rot_dim, d) % 2 == 0 and _pixels_per_block(s, t, c) > 0
+    return c // heads in HEAD_WIDTHS and min(rot_dim, c // heads) % 2 == 0
 
 
 def fused_temporal_attention_block(x, ln_w, ln_b, wq, wk, wv, wo, bo, bias_htt, *,
@@ -75,23 +93,23 @@ def fused_temporal_attention_block(x, ln_w, ln_b, wq, wk, wv, wo, bo, bias_htt, 
     bt, s, c = x.shape
     t = video_length
     heads = bias_htt.shape[0]
-    d = c // heads
-    rot = min(rot_dim, d)
-    r = _pixels_per_block(s, t, c)
-    if not r:
-        raise ValueError(f"temporal_attention_block: no row tile for S={s}, T={t}, C={c}")
+    if not temporal_attention_block_fits(x, t, heads, rot_dim):
+        raise ValueError(f"temporal_attention_block: unsupported x {tuple(x.shape)} {x.dtype} "
+                         f"at T={t}, {heads} heads")
+    rot = min(rot_dim, c // heads)
     bf = torch.bfloat16
-    xf = _cuda.operand(x, bf, "x")
-    ws = [_cuda.operand(w, bf, n) for w, n in ((ln_w, "ln_w"), (ln_b, "ln_b"), (wq, "wq"),
-                                                (wk, "wk"), (wv, "wv"), (wo, "wo"), (bo, "bo"))]
+    xf = _cuda.tma_operand(x, "x")
+    lnw, lnb, wof, bof = (_cuda.weight(w, bf, n) for w, n in ((ln_w, "ln_w"), (ln_b, "ln_b"),
+                                                               (wo, "wo"), (bo, "bo")))
+    wqkv = _cuda.operand(stacked_qkv(wq, wk, wv), bf, "wqkv")
     bias = _cuda.operand(bias_htt.float(), torch.float32, "bias")
-    cos, sin = rotary_tables(t, rot, device=x.device)
-    cos = _cuda.operand(cos, torch.float32, "cos")
-    sin = _cuda.operand(sin, torch.float32, "sin")
+    cos, sin = rope_operands(t, rot, x.device)
+    hn, o = (torch.empty(bt * s, c, device=x.device, dtype=bf) for _ in range(2))
     out = torch.empty_like(xf)
     rc = _cuda.lib().uav_temporal_attention_block(
-        xf.data_ptr(), *[w.data_ptr() for w in ws], bias.data_ptr(), cos.data_ptr(),
-        sin.data_ptr(), out.data_ptr(), bt // t, t, s, c, heads, rot, r, float(eps),
+        xf.data_ptr(), lnw.data_ptr(), lnb.data_ptr(), wqkv.data_ptr(), wof.data_ptr(),
+        bof.data_ptr(), bias.data_ptr(), cos.data_ptr(), sin.data_ptr(), hn.data_ptr(),
+        o.data_ptr(), out.data_ptr(), bt // t, t, s, c, heads, rot, float(eps),
         int(add_residual), _cuda.stream_ptr(x.device))
     _cuda.check(rc, "temporal_attention_block")
     _cuda.count("temporal_attention_block", (bt, s, c, t))
