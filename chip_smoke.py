@@ -16,11 +16,13 @@ Phases (each announced on a flushed line with the seconds elapsed):
               of the sites they would serve: the conv at every resblock conv
               of both paths, with the site's k and with k = 3): error, time,
               plain time, PyTorch library time where one call computes the
-              same function, and the card's bound; for the kernels on
-              TMA + wgmma (all but the GroupNorm and the fused temporal
-              attention) and their library calls also the GPU time alone,
-              replayed from a CUDA graph; for the cross-attention also its
-              fold (M and Vo) alone. Each path below fails if it
+              same function, and the card's bound; for every kernel and its
+              library call also the GPU time alone, replayed from a CUDA
+              graph; for the cross-attention also its fold (M and Vo) alone.
+              The fused temporal attention and the GroupNorm are also held at
+              shapes that reach their other variants (T = 16, D > 256 or not
+              a power of two, a bf16 bias; bf16 with C % 8 != 0, C past one
+              pass of the block's threads). Each path below fails if it
               launched a kernel at a shape this phase did not check (the
               wrappers count launches by shape, ``_cuda.SHAPES``); after both
               paths, each path's launches times these per-call times give
@@ -30,7 +32,8 @@ Phases (each announced on a flushed line with the seconds elapsed):
               same weights, and for each route the share of a forward's wall
               time in which the card runs kernels (torch.profiler), and on
               the kernel route each port kernel's device time in that
-              forward beside its launches; then
+              forward beside its launches (the temporal resblock's split
+              into its two convs and its GroupNorm passes); then
               VideoUpscalePipeline at released width on a 64x64, 14-frame
               clip (256x256 out), 30 DDIM steps, CFG 6, noise level 120, fp32
               3-frame VAE decode; its five kernels must launch. Then the same
@@ -49,6 +52,12 @@ Phases (each announced on a flushed line with the seconds elapsed):
 It exits non-zero, printing no result, without a CUDA device. Any failure
 raises. The last line is the JSON result; the two lines before it are the
 kernels' JSON record and the card's ``nvidia-smi`` name and power limit.
+
+    python3 chip_smoke.py --only fused_temporal_attention,fused_group_norm
+
+runs phases 1-3 for the named kernels alone and writes their records to
+chiprun_out/chip_smoke_only.json (no paths, no result line): a quick
+before/after measure of a kernel, also against an older checkout's package.
 """
 
 from __future__ import annotations
@@ -56,6 +65,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -117,6 +127,15 @@ FF_SITES = ((32, 1024, 512), (32, 256, 512), (32, 64, 1024),
 # Cout and a frame of 300 pixels (ragged rows and channel tiles)
 FLASH_WIDTHS = ((1, 4, 1000, 64), (1, 4, 1000, 80), (1, 2, 700, 256), (1, 1, 600, 384))
 CONV_WIDE = (2, 12, 15, 20, 1024, 320, 5)
+# fused temporal attention (B', T, H, D): path 2's three UNet levels and T = 8,
+# then one shape of each other variant (csrc/fused_temporal_attention.cu)
+FTA_SITES = ((7680, 5, 8, 64), (1920, 5, 8, 64), (480, 5, 8, 128), (2048, 8, 8, 64))
+FTA_OTHER = ((64, 16, 8, 64), (32, 4, 2, 320), (64, 5, 4, 48))
+# GroupNorm (shape, dtype, groups): the video VAE decoder's and a UNet's
+# sites, then the bf16 8-byte chunks and the multi-pass channel loop
+GN_SITES = (((1, 3, 96, 160, 512), torch.float32, 32), ((1, 3, 384, 640, 128), torch.float32, 32),
+            ((4, 8, 64, 64, 256), torch.bfloat16, 32))
+GN_OTHER = (((2, 5, 6, 10, 100), torch.bfloat16, 4), ((2, 9, 4104), torch.float32, 8))
 # each port kernel's device kernels, by a part of their demangled names, in
 # the order they are tried; every other kernel is PyTorch's (cuDNN, cuBLAS,
 # element-wise, the cross-attention fold's two products). BiasEpilogue is
@@ -132,7 +151,7 @@ DEVICE_KERNELS = (("cab_kernel", "cross_attention_block"),
                   ("K1Epilogue", "fused_temporal_resblock"),
                   ("K2Epilogue", "fused_temporal_resblock"),
                   ("gn_", "fused_temporal_resblock"),
-                  ("fta_kernel", "fused_temporal_attention"),
+                  ("fta_", "fused_temporal_attention"),
                   ("flash_wgmma_kernel", "flash_attention"))
 PATH1_KERNELS = ("temporal_attention_block", "fused_temporal_resblock", "cross_attention_block",
                  "fused_feedforward", "flash_attention")
@@ -234,10 +253,31 @@ def taps(k: int, t: int) -> int:
     return sum(min(t, f + k // 2 + 1) - max(0, f - k // 2) for f in range(t))
 
 
+def trace_ms(fn, calls: int = 5):
+    """Device time in ms per launch of each kernel that ``fn`` launches, by
+    its name without namespaces and arguments (torch.profiler over ``calls``
+    calls; a mean per launch, as a single profiled call can miss its first
+    kernel)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total, count = {}, {}
+    for e in prof.key_averages():
+        if e.device_time_total:
+            name = re.sub(r"(void |uav::|\(anonymous namespace\)::)", "", e.key).split("(")[0]
+            total[name] = total.get(name, 0.0) + e.device_time_total / 1e3
+            count[name] = count.get(name, 0) + e.count
+    return {k: v / count[k] for k, v in total.items()}
+
+
 def compare(name, shape, kern, plain, nbytes_, flops, library=None, peak=PEAK_FLOPS,
-            graphs=False):
-    """Check ``kern`` against ``plain`` and time both (and ``library``);
-    with ``graphs``, also the kernel's and the library's GPU time alone."""
+            trace=False):
+    """Check ``kern`` against ``plain`` and time both (and ``library``), and
+    the kernel's and the library's GPU time alone (:func:`graph_ms`); with
+    ``trace``, also the device time per launch of each kernel it launches."""
     out, ref = kern(), plain()
     torch.cuda.synchronize()
     if out.shape != ref.shape or not torch.isfinite(out.float()).all():
@@ -248,10 +288,11 @@ def compare(name, shape, kern, plain, nbytes_, flops, library=None, peak=PEAK_FL
     lib_ms = cuda_ms(library) if library is not None else None
     b_ms, b_by = bound_ms(nbytes_, flops, peak)
     rec = dict(name=name, shape=shape, max_abs_err=err, rel_err=rel, tol=KERNEL_TOL, ms=ms,
-               plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
-    if graphs:
-        rec.update(graph_ms=graph_ms(kern),
-                   library_graph_ms=graph_ms(library) if library is not None else None)
+               plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+               graph_ms=graph_ms(kern),
+               library_graph_ms=graph_ms(library) if library is not None else None)
+    if trace:
+        rec["trace_ms"] = trace_ms(kern)
     log(json.dumps(rec))
     if not rel <= KERNEL_TOL:
         raise AssertionError(f"{name} {shape}: kernel disagrees with its plain version "
@@ -259,11 +300,14 @@ def compare(name, shape, kern, plain, nbytes_, flops, library=None, peak=PEAK_FL
     return rec
 
 
-def check_kernels():
+def check_kernels(only=None):
+    """Every kernel at its shapes (:func:`compare`), or the kernels named in
+    ``only``."""
     recs = []
     inp = Inputs(1)
+    want = lambda name: only is None or name in only
     # 1. temporal attention block: every UNet transformer level of path 1
-    for s, c in ((1024, 512), (256, 512), (64, 1024)):
+    for s, c in ((1024, 512), (256, 512), (64, 1024)) if want("temporal_attention_block") else ():
         x = inp.normal(32, s, c)
         lw, lb = inp.norm(c)
         wq, wk, wv, wo = (inp.weight(c, c) for _ in range(4))
@@ -276,9 +320,10 @@ def check_kernels():
             lambda: fused_temporal_attention_block(*args, video_length=8, add_residual=True),
             lambda: temporal_attention_block_plain(*args, 8, 32, 1e-5, True),
             nbytes(x, x, lw, lb, wq, wk, wv, wo, bo, bias),
-            tokens * (8 * c * c + 4 * 8 * c), graphs=True))
+            tokens * (8 * c * c + 4 * 8 * c)))
     # 2. temporal resblock at every site of both paths
-    for (batch, t, hh, ww, c, k) in RESBLOCK_P1 + RESBLOCK_P2:
+    for (batch, t, hh, ww, c, k) in (RESBLOCK_P1 + RESBLOCK_P2
+                                     if want("fused_temporal_resblock") else ()):
         x = inp.normal(batch, t, hh, ww, c)
         n1w, n1b = inp.norm(c)
         n2w, n2b = inp.norm(c)
@@ -293,10 +338,11 @@ def check_kernels():
             lambda: fused_temporal_resblock(*args, groups=32, eps=1e-6),
             lambda: fused_temporal_resblock_plain(*args, 32, 1e-6),
             nbytes(x, x, w1, w2, b1, b2, n1w, n1b, n2w, n2b),
-            2.0 * rows * c * c * (taps(k, t) + taps(3, t)), graphs=True))
+            2.0 * rows * c * c * (taps(k, t) + taps(3, t)), trace=True))
     # 3. text cross-attention at the C = 512 levels: path 1 (context (4, 77,
     # 1024), T = 8) and path 2 (context (2, 77, 1024), T = 5)
-    for b, t, s in ((4, 8, 1024), (4, 8, 256), (2, 5, 3840), (2, 5, 960)):
+    for b, t, s in (((4, 8, 1024), (4, 8, 256), (2, 5, 3840), (2, 5, 960))
+                    if want("cross_attention_block") else ()):
         ctx = inp.normal(b, 77, 1024)
         wk_, wv_ = inp.weight(512, 1024), inp.weight(512, 1024)
         k_, v_ = F.linear(ctx, wk_), F.linear(ctx, wv_)
@@ -312,14 +358,14 @@ def check_kernels():
             lambda: cross_attention_block_plain(x, lw, lb, m.to(torch.bfloat16),
                                                 vo.to(torch.bfloat16), 77, bo, t, 1e-5, True),
             nbytes(x, x, lw, lb, wq, k_, v_, wo, bo),
-            float(b * t) * s * 4 * 512 * 8 * 77, graphs=True))
+            float(b * t) * s * 4 * 512 * 8 * 77))
         # the fold of M and Vo, part of every call (its two products are
         # PyTorch's): its own time per call
         recs[-1]["fold_ms"] = cuda_ms(lambda: fold_keys(wq, k_, v_, wo, 8, 64))
         log(f"cross_attention_block {recs[-1]['shape']}: fold alone {recs[-1]['fold_ms']:.4f} "
             f"ms of {recs[-1]['ms']:.4f} ms per call")
     # 4. feed-forward: every transformer level of both paths
-    for bt, s, c in FF_SITES:
+    for bt, s, c in FF_SITES if want("fused_feedforward") else ():
         x = inp.normal(bt, s, c)
         lw, lb = inp.norm(c)
         w1, b1 = inp.weight(8 * c, c), inp.normal(8 * c, scale=0.1)
@@ -329,12 +375,13 @@ def check_kernels():
             "fused_feedforward", [bt, s, c],
             lambda: fused_feedforward(*args, add_residual=True),
             lambda: fused_feedforward_plain(*args, 1e-5, True),
-            nbytes(x, x, lw, lb, w1, b1, w2, b2), float(bt) * s * 24 * c * c, graphs=True))
+            nbytes(x, x, lw, lb, w1, b1, w2, b2), float(bt) * s * 24 * c * c))
     # 5. flash attention: the VAE mid block (d = 512) in 3- and 2-frame decode
     # chunks, at path 1's 64x64 and path 2's 96x160 latent, the flagship's
     # C = 1024 UNet self-attention (40x40 latent), and the other widths
-    for bsz, h, s, d in ((3, 1, 4096, 512), (2, 1, 4096, 512), (3, 1, 15360, 512),
-                         (2, 1, 15360, 512), (1, 8, 1600, 128)) + FLASH_WIDTHS:
+    for bsz, h, s, d in (((3, 1, 4096, 512), (2, 1, 4096, 512), (3, 1, 15360, 512),
+                          (2, 1, 15360, 512), (1, 8, 1600, 128)) + FLASH_WIDTHS
+                         if want("flash_attention") else ()):
         q, k, v = (inp.normal(bsz, h, s, d) for _ in range(3))
         scale = d ** -0.5
         recs.append(compare(
@@ -342,13 +389,15 @@ def check_kernels():
             lambda: flash_attention(q, k, v, scale),
             lambda: attention_plain(q, k, v, scale),
             nbytes(q, k, v, q), 4.0 * bsz * h * s * s * d,
-            library=lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), graphs=True))
+            library=lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)))
     # 6. fused temporal attention: path 2's UNet levels 1-3 (T = 5, CFG rows
-    # B = 2: B' = 2 * 48*80, 2 * 24*40, 2 * 12*20), and T = 8 at B' = 2048
-    for bp, t, h, d in ((7680, 5, 8, 64), (1920, 5, 8, 64), (480, 5, 8, 128), (2048, 8, 8, 64)):
+    # B = 2: B' = 2 * 48*80, 2 * 24*40, 2 * 12*20), and T = 8 at B' = 2048;
+    # then the streaming variant (T = 16; D = 320) and idle lanes (D = 48)
+    # with a bf16 bias, as the UNet's bf16 table gives it
+    for bp, t, h, d in FTA_SITES + FTA_OTHER if want("fused_temporal_attention") else ():
         q, k = inp.normal(bp, t, h, d, scale=0.3), inp.normal(bp, t, h, d, scale=0.3)
         v = inp.normal(bp, t, h, d)
-        bias = inp.normal(h, t, t, dtype=torch.float32)
+        bias = inp.normal(h, t, t, dtype=torch.bfloat16 if d == 48 else torch.float32)
         qh, kh, vh = (a.transpose(1, 2).contiguous() for a in (q, k, v))
         mask = bias.to(torch.bfloat16)[None]
         recs.append(compare(
@@ -357,13 +406,13 @@ def check_kernels():
             lambda: temporal_attention_plain(q, k, v, bias),
             nbytes(q, k, v, bias, q), 4.0 * bp * h * t * t * d,
             library=lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
-                                                           scale=1.0)))
+                                                           scale=1.0), trace=True))
     # 7. GroupNorm (+ SiLU): the video VAE decoder's fp32 sites (mid block at
     # the 96x160 latent, last up block at 384x640, 3-frame chunks) and a bf16
-    # UNet shape; the library call (channels first) only without the SiLU
-    for shape, dt in (((1, 3, 96, 160, 512), torch.float32),
-                      ((1, 3, 384, 640, 128), torch.float32),
-                      ((4, 8, 64, 64, 256), torch.bfloat16)):
+    # UNet shape, then bf16 in 8-byte chunks (C % 8 != 0) and C past one pass
+    # of the block's threads (groups split between passes); the library call
+    # (channels first) only without the SiLU
+    for shape, dt, groups in GN_SITES + GN_OTHER if want("fused_group_norm") else ():
         c = shape[-1]
         x = inp.normal(*shape, scale=2.0, dtype=dt) + 0.5
         gw, gb = (a.to(dt) for a in inp.norm(c))
@@ -372,14 +421,15 @@ def check_kernels():
         for act in (None, "silu"):
             recs.append(compare(
                 "fused_group_norm", [*shape, str(dt).split(".")[-1], act],
-                lambda: fused_group_norm(x, gw, gb, 32, 1e-6, act),
-                lambda: group_norm_plain(x, gw, gb, 32, 1e-6, act),
+                lambda: fused_group_norm(x, gw, gb, groups, 1e-6, act),
+                lambda: group_norm_plain(x, gw, gb, groups, 1e-6, act),
                 nbytes(x, gw, gb, x), (8.0 if act else 5.0) * x.numel(),
-                library=(lambda: F.group_norm(xc, 32, gw, gb, 1e-6)) if act is None else None,
-                peak=peak))
+                library=(lambda: F.group_norm(xc, groups, gw, gb, 1e-6)) if act is None else None,
+                peak=peak, trace=True))
     # 8. temporal conv: every (k,1,1) conv of both paths' resblocks, and one
     # shape of the wider gate
-    for (batch, t, hh, ww, cin, cout, k) in CONV_SITES + (CONV_WIDE,):
+    for (batch, t, hh, ww, cin, cout, k) in (CONV_SITES + (CONV_WIDE,)
+                                             if want("temporal_conv") else ()):
         x = inp.normal(batch, t, hh, ww, cin)
         w = inp.weight(cout, cin, k, 1, 1, fan_in=cin * k)
         b = inp.normal(cout, scale=0.1)
@@ -389,7 +439,7 @@ def check_kernels():
             "temporal_conv", [batch, t, hh, ww, cin, cout, k],
             lambda: temporal_conv(x, w, b), lambda: temporal_conv_plain(x, w, b),
             nbytes(x, w, b, y), 2.0 * batch * hh * ww * cin * cout * taps(k, t),
-            library=lambda: F.conv3d(xc, w, b, padding=(k // 2, 0, 0)), graphs=True))
+            library=lambda: F.conv3d(xc, w, b, padding=(k // 2, 0, 0))))
     return recs
 
 
@@ -406,10 +456,23 @@ def device_split(prof):
     return by_kernel, total
 
 
+def device_parts(prof, kernel):
+    """Device time in seconds of one port kernel's device kernels, by the
+    name part that attributes them (DEVICE_KERNELS): the temporal resblock's
+    two convs (K1Epilogue, K2Epilogue) apart from its GroupNorm passes."""
+    parts = {}
+    for e in prof.key_averages():
+        part, name = next(((p, k) for p, k in DEVICE_KERNELS if p in e.key), (None, None))
+        if name == kernel and e.device_time_total:
+            parts[part] = parts.get(part, 0.0) + e.device_time_total / 1e6
+    return parts
+
+
 def busy_share(fn):
     """The card's kernel time during one call of ``fn``, split by port kernel
     (:func:`device_split`), the call's wall time (host clock, synchronised),
-    in seconds, and the wrappers' launches in the call."""
+    in seconds, the wrappers' launches in the call, and the temporal
+    resblock's device time by part (:func:`device_parts`)."""
     fn()
     torch.cuda.synchronize()
     _cuda.reset_launch_counts()
@@ -419,7 +482,8 @@ def busy_share(fn):
         torch.cuda.synchronize()
         wall = time.time() - t0
     by_kernel, busy = device_split(prof)
-    return busy, wall, by_kernel, {k: v for k, v in _cuda.LAUNCHES.items() if v}
+    return (busy, wall, by_kernel, {k: v for k, v in _cuda.LAUNCHES.items() if v},
+            device_parts(prof, "fused_temporal_resblock"))
 
 
 def check_unet(pipe, frames: int, h: int, w: int):
@@ -445,17 +509,20 @@ def check_unet(pipe, frames: int, h: int, w: int):
         raise AssertionError(f"UNet with kernels disagrees with the plain UNet: {rel:.3e}")
     forward = lambda: unet(sample, 500, low_res, ctx, level, cfg_dup=True)
     with torch.no_grad():
-        busy, wall, split, launches = busy_share(forward)
+        busy, wall, split, launches, resblock_parts = busy_share(forward)
         with _cuda.plain_path():
-            plain_busy, plain_wall, _, _ = busy_share(forward)
+            plain_busy, plain_wall, _, _, _ = busy_share(forward)
     log(f"unet forward, card busy / wall (profiled): kernels {busy * 1e3:.1f} / "
         f"{wall * 1e3:.1f} ms ({busy / wall:.1%}), plain {plain_busy * 1e3:.1f} / "
         f"{plain_wall * 1e3:.1f} ms ({plain_busy / plain_wall:.1%})")
     log("unet forward, card time by kernel in context (ms, launches): " + ", ".join(
         f"{k} {v * 1e3:.3f} ({launches.get(k, '-')})"
         for k, v in sorted(split.items(), key=lambda kv: -kv[1])))
+    log("unet forward, fused_temporal_resblock's device time by part (ms): " + ", ".join(
+        f"{k} {v * 1e3:.3f}" for k, v in resblock_parts.items()))
     return dict(rel_l2=rel, busy_s=busy, wall_s=wall, plain_busy_s=plain_busy,
-                plain_wall_s=plain_wall, in_context_s=split, in_context_launches=launches)
+                plain_wall_s=plain_wall, in_context_s=split, in_context_launches=launches,
+                resblock_parts_s=resblock_parts)
 
 
 def check_output(out, shape):
@@ -660,7 +727,13 @@ def main() -> int:
                 log(f"ptxas: {line.strip()[:200]}")
 
     phase("kernels")
-    recs = check_kernels()
+    only = set(sys.argv[sys.argv.index("--only") + 1].split(",")) if "--only" in sys.argv else None
+    recs = check_kernels(only)
+    if only:
+        with open("chiprun_out/chip_smoke_only.json", "w") as f:
+            json.dump({"card": card, "kernels": recs}, f, indent=1)
+        phase(f"done: {len(recs)} checks of {sorted(only)} (no paths run)")
+        return 0
     checked = {(r["name"], json.dumps(r["shape"])) for r in recs}
 
     phase("path 1: model (random weights on the card)")

@@ -4,9 +4,12 @@ and the two modules that route to them (``TemporalAttention`` on its kernel
 route and on its module route, ``FusedGroupNorm``), on the CPU; for the
 kernels on the GEMM core (temporal resblock, feed-forward), their gates, the
 resblock's GroupNorm partials and finalize, and the weight-operand cache;
-and for the TMA + wgmma cross-attention and temporal attention blocks, their
+for the TMA + wgmma cross-attention and temporal attention blocks, their
 decompositions (the kernels' algorithms in plain PyTorch, on the layouts the
-kernels read) against the JAX references, and their gates.
+kernels read) against the JAX references, and their gates; for the fused
+temporal attention, its lane decomposition, and for the GroupNorm passes,
+their block plan and fixed-order finalize; the T5 bias the temporal
+attentions take.
 
 Inputs come from numpy with a seed. The JAX functions run through their
 non-Pallas references (``use_pallas=False`` / ``_reference``), the port's
@@ -42,6 +45,7 @@ from upscale_a_video_tpu_torch.ops import fused_temporal_attention as t_fta
 from upscale_a_video_tpu_torch.ops import fused_temporal_resblock as t_res
 from upscale_a_video_tpu_torch.ops import temporal_attention_block as t_tab
 from upscale_a_video_tpu_torch.ops import temporal_conv as t_tc
+from upscale_a_video_tpu_torch.ops.relpos import relative_position_buckets
 from upscale_a_video_tpu_torch.ops.rope import rotary_tables
 from upscale_a_video_tpu_torch.weights import flatten_tree, to_state_dict
 
@@ -100,6 +104,62 @@ def test_fused_temporal_attention_plain(t, with_bias):
     close(want, got, 1e-5)
 
 
+@pytest.mark.parametrize("t,d", [(5, 128), (1, 16), (16, 16)])
+@pytest.mark.parametrize("with_bias", [True, False])
+def test_fused_temporal_attention_plain_at_the_kernel_edges(t, d, with_bias):
+    """The plain route at path 2's widest head (D = 128) and at both ends of
+    the gate's frame range (T = 1: one key; T = 16: the streaming kernel's
+    largest), against JAX ``_reference``."""
+    rng = np.random.default_rng(40 + t + d)
+    q, k, v = (rand(rng, 5, t, 2, d) for _ in range(3))
+    bias = rand(rng, 2, t, t) if with_bias else None
+    want = j_fta._reference(q, k, v, bias)
+    got = t_fta.fused_temporal_attention(T(q), T(k), T(v), None if bias is None else T(bias))
+    close(want, got, 1e-5)
+
+
+def _fta_lanes(q, k, v, bias):
+    """The fused temporal attention kernel's algorithm (T <= 8, D <= 256) on
+    the CPU: each (row, head) on ``group_lanes(D)`` lanes of 8 channels (lanes
+    past D / 8 hold zeros); a score is the lanes' partial dot products summed
+    in a butterfly, then the bias, the exp2 softmax and the probabilities in
+    v's dtype."""
+    bp, t, h, d = q.shape
+    lanes = t_fta.group_lanes(d)
+    qf, kf = (torch.nn.functional.pad(a, (0, lanes * 8 - d)).reshape(bp, t, h, lanes, 8)
+              for a in (q, k))
+    part = torch.einsum("bihle,bjhle->bhijl", qf, kf)
+    o = lanes // 2
+    while o:
+        part = part + part[..., torch.arange(lanes) ^ o]
+        o //= 2
+    s = part[..., 0] + (0.0 if bias is None else bias[None])
+    e = torch.exp2((s - s.amax(dim=-1, keepdim=True)) * 1.4426950408889634)
+    p = (e * (1.0 / e.sum(dim=-1, keepdim=True))).to(v.dtype)
+    return torch.einsum("bhij,bjhd->bihd", p, v)
+
+
+@pytest.mark.parametrize("t,d", [(5, 64), (5, 128), (8, 64), (5, 48), (1, 16), (8, 256)])
+def test_fused_temporal_attention_lane_decomposition(t, d):
+    """The kernel's lane decomposition (8 channels a lane; idle lanes at
+    D = 48; a whole warp at D = 256) and exp2 softmax against JAX
+    ``_reference``, in float32."""
+    rng = np.random.default_rng(50 + t + d)
+    q, k, v = (rand(rng, 4, t, 3, d, scale=0.5) for _ in range(3))
+    bias = rand(rng, 3, t, t)
+    close(j_fta._reference(q, k, v, bias), _fta_lanes(T(q), T(k), T(v), T(bias)), 2e-5)
+
+
+def test_fused_temporal_attention_group_lanes():
+    """Lanes per (row, head): D / 8 rounded up to a power of two, one warp
+    at most (past D = 256 the shared-memory variant runs; the kernel still
+    checks the count)."""
+    want = {16: 2, 32: 4, 48: 8, 64: 8, 80: 16, 128: 16, 256: 32, 320: 32, 1024: 32}
+    for d, lanes in want.items():
+        assert t_fta.group_lanes(d) == lanes, d
+        assert lanes * 8 >= min(d, 256)
+
+
 def test_temporal_attention_plain_is_shared_with_the_block():
     """One plain version of the attention core serves both kernels."""
     assert t_tab.temporal_attention_plain is t_fta.temporal_attention_plain
@@ -133,6 +193,46 @@ def test_temporal_attention_module_both_routes(t):
     close(want, chain, 2e-5)
 
 
+@pytest.mark.parametrize("t", [5, 8])
+def test_relative_position_bias_matches_jax(t):
+    """The (H, T, T) T5 bias looked up through the cached flat index equals
+    the JAX TemporalAttention's bias (its parameter twin's ``bias_hss``) on
+    the same table, contiguous, as the fused kernels read it."""
+    heads = 3
+    jm = ja._TemporalAttnParams(query_dim=16, heads=heads, dim_head=8)
+    params = jm.init(jax.random.PRNGKey(0), t)["params"]
+    table = rand(np.random.default_rng(60 + t), 32, heads)
+    params = {**params, "relative_attention_bias": jnp.asarray(table)}
+    want = np.asarray(jm.apply({"params": params}, t)[-1])
+    rb = ta.RelativePositionBias(heads)
+    with torch.no_grad():
+        rb.relative_attention_bias.weight.copy_(T(table))
+    got = rb(t)
+    assert got.shape == (heads, t, t) and got.is_contiguous()
+    np.testing.assert_array_equal(got.detach().numpy(), want)
+    assert rb(t).data_ptr() != got.data_ptr()  # a lookup per call, not a cached bias
+
+
+def test_relative_position_bias_follows_loaded_weights():
+    """The index is cached per (T, device) outside the state dict, so a
+    strict load still sees one key; the bias is read from the table on every
+    call, so it follows ``load_state_dict`` and in-place updates."""
+    rb = ta.RelativePositionBias(2)
+    assert set(rb.state_dict()) == {"relative_attention_bias.weight"}
+    first = rb(5).detach().clone()
+    index = rb._index[(5, torch.device("cpu"))]
+    table = torch.arange(64, dtype=torch.float32).reshape(32, 2)
+    rb.load_state_dict({"relative_attention_bias.weight": table}, strict=True)
+    got = rb(5)
+    assert rb._index[(5, torch.device("cpu"))] is index
+    buckets = torch.from_numpy(relative_position_buckets(5, 32, 32).astype(np.int64))
+    assert torch.equal(got, table[buckets].permute(2, 0, 1)) and not torch.equal(got, first)
+    with torch.no_grad():
+        rb.relative_attention_bias.weight.mul_(-1)
+    assert torch.equal(rb(5), -got)
+    assert set(rb.state_dict()) == {"relative_attention_bias.weight"}
+
+
 # ------------------------------------------------------------- GroupNorm
 
 @pytest.mark.parametrize("act", [None, "silu"])
@@ -163,6 +263,62 @@ def test_fused_group_norm_gate():
     assert not t_gn.fused_group_norm_fits(torch.empty(2, 8, 8, 6, **meta), 3, None)  # C % 4
     assert not t_gn.fused_group_norm_fits(torch.empty(2, 8, 8, 64, **meta), 32, "gelu")
     assert not t_gn.fused_group_norm_fits(torch.empty(2, 8, 64, dtype=torch.float16, **meta), 8)
+
+
+@pytest.mark.parametrize("n,rows,c,groups,fp32", [
+    (1, 20000, 16, 4, True),    # 40 blocks: the finalize's lanes take two blocks each
+    (4, 4096, 256, 32, False),  # the bf16 UNet site's channels, a sample per block row
+    (2, 301, 100, 4, False),    # bf16 in 8-byte chunks, a ragged last block
+    (1, 37, 4104, 8, True),     # three channel passes, groups split between them
+])
+def test_gn_stats_plan_and_finalize_match_jax(n, rows, c, groups, fp32):
+    """The statistics pass's plan covers each sample's rows once with no
+    block empty, about two blocks per SM and no more blocks than give each
+    ``UNROLL`` row steps; its per-(sample, group, block) sums, reduced in the
+    finalize's fixed lane order, give the affine of JAX's
+    ``_affine_from_partials`` on the same sums and of ``_gn_affine`` on x,
+    and the halves at scale 1/2 (the resblock's)."""
+    sms = 132
+    nb, rpb = t_gn.stats_plan(n, rows, c, fp32, sms)
+    assert nb * rpb >= rows > (nb - 1) * rpb and nb <= -(-2 * sms // n)
+    tpr = min(c // t_gn.chunk_width(c, fp32), t_gn.THREADS)
+    assert nb <= -(-rows // (t_gn.UNROLL * (t_gn.THREADS // tpr)))
+    rng = np.random.default_rng(rows + c)
+    x = rand(rng, n, rows, c) * 1.5 + 0.3
+    scale, bias = 1 + rand(rng, c, scale=0.1), rand(rng, c, scale=0.1)
+    part = t_gn.block_sums(T(x), groups, nb, rpb)
+    assert part.shape == (n, groups, nb, 2) and part.dtype == torch.float64
+    count = rows * (c // groups)
+    a, d = t_gn.affine_from_block_sums(part, count, T(scale), T(bias), 1e-6)
+    jpart = np.zeros((n, 2, j_res._GPAD), np.float32)
+    jpart[:, :, :groups] = part.sum(dim=2).permute(0, 2, 1).numpy()
+    ja, jd = j_res._affine_from_partials(jnp.asarray(jpart), rows, groups, c, 1e-6,
+                                         jnp.asarray(scale), jnp.asarray(bias))
+    close(ja, a, 2e-5)
+    close(jd, d, 2e-5)
+    ga, gd = j_res._gn_affine(jnp.asarray(x.reshape(n, rows, 1, 1, c)), jnp.asarray(scale),
+                              jnp.asarray(bias), groups, 1e-6)
+    close(ga, a, 2e-5)
+    close(gd, d, 2e-5)
+    ha, hd = t_gn.affine_from_block_sums(part, count, T(scale), T(bias), 1e-6, 0.5)
+    assert torch.equal(ha, a * 0.5) and torch.equal(hd, d * 0.5)
+
+
+def test_lane_order_sum_is_the_sum():
+    """The finalize's fixed order (lane-strided, then a butterfly) is a sum:
+    equal to the plain float64 sum to rounding at lengths below, at and past
+    the lanes, for each lane count, and the same bits on every call. The
+    lanes per group put all of a sample's groups in one round of its last
+    block's threads: 16 for 32 groups."""
+    rng = np.random.default_rng(7)
+    for lanes in (32, 16, 4, 1):
+        for length in (1, 5, 31, 32, 33, 264):
+            v = torch.from_numpy(rng.standard_normal((3, length)))
+            got = t_gn.lane_order_sum(v, lanes)
+            assert torch.allclose(got, v.sum(dim=-1), rtol=1e-12, atol=1e-12), (lanes, length)
+            assert torch.equal(got, t_gn.lane_order_sum(v.clone(), lanes))
+    assert [t_gn.finalize_lanes(p) for p in (1, 16, 32, 64, 128, 512, 1024)] == [
+        32, 32, 16, 8, 4, 1, 1]
 
 
 @pytest.mark.parametrize("act", [None, "silu"])
@@ -568,6 +724,31 @@ def test_attention_block_gates_at_the_path_sites():
     assert not t_cab.cross_attention_block_fits(torch.empty(32, 64, 512, **BF), 129, 8, 64)
     assert not t_cab.cross_attention_block_fits(torch.empty(32, 64, 512), 77, 8, 64)
     assert not t_cab.cross_attention_block_fits(torch.empty(32, 64, 320, **BF), 77, 5, 64)
+
+
+def test_resblock_device_parts_split_the_convs_from_the_gn_passes():
+    """The profiled forward's temporal resblock time by part: its two convs
+    (K1Epilogue, K2Epilogue) apart from its GroupNorm passes (gn_stats,
+    gn_finalize); other kernels' device time is not counted."""
+    import types
+
+    import chip_smoke
+
+    ev = lambda key, us: types.SimpleNamespace(key=key, device_time_total=us)
+    events = [ev("void uav::(anonymous namespace)::gemm_kernel<128, 256, uav::(anonymous "
+                 "namespace)::K1Epilogue>(CUtensorMap_st)", 400.0),
+              ev("void uav::(anonymous namespace)::gemm_kernel<128, 256, uav::(anonymous "
+                 "namespace)::K2Epilogue>(CUtensorMap_st)", 300.0),
+              ev("void uav::(anonymous namespace)::gn_stats_kernel<false, 8>(uav::(anonymous "
+                 "namespace)::GnStatsArgs)", 30.0),
+              ev("uav::(anonymous namespace)::gn_finalize_kernel(float const*)", 5.0),
+              ev("void uav::(anonymous namespace)::fta_regs_kernel<5>(FtaArgs)", 50.0),
+              ev("nvjet_tst_128x80_64x8_1x2_h_bz_TNT", 7.0)]
+    parts = chip_smoke.device_parts(types.SimpleNamespace(key_averages=lambda: events),
+                                    "fused_temporal_resblock")
+    assert parts == pytest.approx({"K1Epilogue": 400e-6, "K2Epilogue": 300e-6, "gn_": 35e-6})
+    text = "".join(p.read_text() for p in _cuda.sources())
+    assert "gn_stats_kernel" in text and "gn_finalize_kernel" in text
 
 
 def test_device_split_names_are_in_the_sources():

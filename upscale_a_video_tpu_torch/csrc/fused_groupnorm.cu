@@ -1,21 +1,27 @@
 // Channels-last GroupNorm with an optional SiLU, y = act((x - mean) * rstd * gamma + beta),
 // statistics per (sample, group) over every non-channel axis (torch's 4-D/5-D
-// GroupNorm), in three launches:
-//   gn_partials   per-(block, channel) sums of x and x^2 (one read of x)
-//   gn_finalize   per-(sample, group) mean and rstd in a fixed order, folded
-//                 into a per-(sample, channel) affine a, d
-//   gn_apply      y = act(x * a + d) (one read of x, one write of y)
+// GroupNorm), in two launches:
+//   gn_stats   per-(sample, group) sums of x and x^2 (one read of x), and in
+//              each sample's last block the finalize: mean and rstd in a fixed
+//              order, folded into a per-(sample, channel) affine a, d
+//              (group_norm.cuh)
+//   gn_apply   y = act(x * a + d) (one read of x, one write of y)
 //
 // Replaces upscale_a_video_tpu/ops/fused_groupnorm.py::fused_group_norm
 // (Pallas _stats_kernel and _apply_kernel; there the statistics were carried
 // across the sequential row grid in scratch memory). Blocks on this card run
-// in no order, hence the partial sums and the finalize pass (group_norm.cuh).
-// Bound on this card: bytes (two reads of x and one write of y, at a few
-// operations per element).
+// in no order, hence the per-block partials and the last block's finalize.
 //
-// x and y are bf16 or fp32 (the UNet's and the fp32 VAE decoder's sites);
-// statistics and the affine are fp32. The apply pass moves 4 elements per
-// thread per step (8 bytes of bf16, 16 bytes of fp32).
+// Bound on this card: bytes. x does not stay on chip (94-377 MB at the video
+// VAE's fp32 sites, beyond the 50 MB L2), so two reads of x and one write of
+// y are inherent. The apply pass takes the statistics pass's blocks and rows
+// (the same plan) but walks each block's rows from the end back to the start,
+// so its first reads find what the statistics pass read last still in L2;
+// it reads with evict-first loads and writes y with streaming stores, so y
+// does not push those rows out. Each thread keeps one chunk of channels, so
+// its a and d stay in registers; loads and stores are 16 bytes (8 for bf16
+// with C % 8 != 0), kGnUnroll rows in flight; the SiLU uses the fast
+// exponential and division.
 #include "group_norm.cuh"
 
 // One anonymous namespace per file, inside uav as the shared header's is: a
@@ -23,77 +29,76 @@
 namespace uav {
 namespace {
 
-// Elements e..e+3 of an fp32 (F32) or bf16 array, 16 or 8 bytes at once.
-template <bool F32>
-__device__ __forceinline__ void load4(const void* p, long long e, float v[4]) {
-  if constexpr (F32) {
-    const float4 t = reinterpret_cast<const float4*>(p)[e / 4];
-    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
-  } else {
-    const uint2 t = reinterpret_cast<const uint2*>(p)[e / 4];
-    const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.x));
-    const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.y));
-    v[0] = lo.x; v[1] = lo.y; v[2] = hi.x; v[3] = hi.y;
-  }
+template <class Raw>
+__device__ __forceinline__ Raw ld_stream(const Raw* p) {
+  return __ldcs(p);
 }
 
-template <bool F32>
-__device__ __forceinline__ void store4(void* p, long long e, const float v[4]) {
-  if constexpr (F32) {
-    reinterpret_cast<float4*>(p)[e / 4] = make_float4(v[0], v[1], v[2], v[3]);
-  } else {
-    const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
-    const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
-    uint2 t;
-    t.x = *reinterpret_cast<const unsigned int*>(&lo);
-    t.y = *reinterpret_cast<const unsigned int*>(&hi);
-    reinterpret_cast<uint2*>(p)[e / 4] = t;
-  }
+template <class Raw>
+__device__ __forceinline__ void st_stream(Raw* p, const Raw& v) {
+  __stcs(p, v);
 }
 
-// x, y: (N, per_sample) with per_sample = rows * C; a, d: (N, C).
-template <bool F32, bool SILU>
-__global__ void __launch_bounds__(kThreads)
-gn_apply_kernel(const void* __restrict__ x, const float* __restrict__ a,
-                const float* __restrict__ d, void* __restrict__ y, long long per_sample, int C,
-                long long total) {
-  const long long stride = (long long)gridDim.x * kThreads * 4;
-  for (long long e = ((long long)blockIdx.x * kThreads + threadIdx.x) * 4; e < total;
-       e += stride) {
-    const long long b = e / per_sample;
-    const int c = (int)(e % C);
-    const float* ab = a + b * C + c;
-    const float* db = d + b * C + c;
-    float v[4];
-    load4<F32>(x, e, v);
+template <int VEC, bool SILU>
+__device__ __forceinline__ void affine(float (&v)[VEC], const float (&a)[VEC],
+                                       const float (&d)[VEC]) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      float f = v[j] * ab[j] + db[j];
-      if (SILU) f = f / (1.f + expf(-f));
-      v[j] = f;
-    }
-    store4<F32>(y, e, v);
+  for (int e = 0; e < VEC; ++e) {
+    const float f = fmaf(v[e], a[e], d[e]);
+    v[e] = SILU ? __fdividef(f, 1.f + __expf(-f)) : f;
   }
 }
 
-template <bool F32>
-cudaError_t run(const void* x, const void* gamma, const void* beta, void* part, void* a,
-                void* d, void* y, int N, int rows, int C, int G, int nblk, float eps, int silu,
-                cudaStream_t stream) {
-  cudaError_t e = launch_gn_partials(F32, x, part, N, rows, C, nblk, stream);
-  if (e != cudaSuccess) return e;
-  e = launch_gn_finalize(true, part, gamma, beta, a, d, N, nblk, C, G,
-                         (float)rows * (float)(C / G), eps, 1.f, stream);
-  if (e != cudaSuccess) return e;
-  const long long per_sample = (long long)rows * C, total = per_sample * N;
-  const long long want = (total / 4 + kThreads - 1) / kThreads;
-  const int blocks = (int)(want < 132 * 16 ? want : 132 * 16);
+// x, y: (N, rows, C); a, d: (N, C) fp32. The block and row plan of gn_stats,
+// each thread's rows walked from its last one back.
+template <bool F32, int VEC, bool SILU>
+__global__ void __launch_bounds__(kGnThreads)
+gn_apply_kernel(const void* __restrict__ x, const float* __restrict__ a,
+                const float* __restrict__ d, void* __restrict__ y, int rows, int C, int rpb) {
+  using V = GnVec<F32, VEC>;
+  using Raw = typename V::Raw;
+  const GnMap m(C, VEC, rows, rpb);
+  if (m.rs >= m.rps || m.r0 + m.rs >= m.r1) return;
+  const int n = blockIdx.y;
+  const size_t sample = (size_t)n * rows * m.chunks;
+  const Raw* xs = reinterpret_cast<const Raw*>(x) + sample;
+  Raw* ys = reinterpret_cast<Raw*>(y) + sample;
+  const int r_last = m.r0 + m.rs + (m.r1 - 1 - m.r0 - m.rs) / m.rps * m.rps;
+  for (int ch = m.cc; ch < m.chunks; ch += m.tpr) {
+    float av[VEC], dv[VEC];
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      av[e] = a[(size_t)n * C + ch * VEC + e];
+      dv[e] = d[(size_t)n * C + ch * VEC + e];
+    }
+    for (int r = r_last; r >= m.r0; r -= kGnUnroll * m.rps) {
+      Raw raw[kGnUnroll];
+#pragma unroll
+      for (int u = 0; u < kGnUnroll; ++u)
+        if (r - u * m.rps >= m.r0) raw[u] = ld_stream(xs + (size_t)(r - u * m.rps) * m.chunks + ch);
+#pragma unroll
+      for (int u = 0; u < kGnUnroll; ++u) {
+        const int ru = r - u * m.rps;
+        if (ru < m.r0) continue;
+        float v[VEC];
+        V::unpack(raw[u], v);
+        affine<VEC, SILU>(v, av, dv);
+        st_stream(ys + (size_t)ru * m.chunks + ch, V::pack(v));
+      }
+    }
+  }
+}
+
+template <bool F32, int VEC>
+cudaError_t launch_apply(const void* x, const void* a, const void* d, void* y, int N, int rows,
+                         int C, int nb, int rpb, int silu, cudaStream_t stream) {
+  const dim3 grid(nb, N);
   if (silu)
-    gn_apply_kernel<F32, true><<<blocks, kThreads, 0, stream>>>(
-        x, (const float*)a, (const float*)d, y, per_sample, C, total);
+    gn_apply_kernel<F32, VEC, true><<<grid, kGnThreads, 0, stream>>>(
+        x, (const float*)a, (const float*)d, y, rows, C, rpb);
   else
-    gn_apply_kernel<F32, false><<<blocks, kThreads, 0, stream>>>(
-        x, (const float*)a, (const float*)d, y, per_sample, C, total);
+    gn_apply_kernel<F32, VEC, false><<<grid, kGnThreads, 0, stream>>>(
+        x, (const float*)a, (const float*)d, y, rows, C, rpb);
   return cudaGetLastError();
 }
 
@@ -103,16 +108,31 @@ cudaError_t run(const void* x, const void* gamma, const void* beta, void* part, 
 using namespace uav;
 
 // x, y: (N, rows, C), bf16 (fp32 == 0) or fp32 (fp32 == 1), 16-byte aligned;
-// gamma, beta: (C,) fp32; part: (N, nblk, C, 2) fp32 scratch; a, d: (N, C) fp32
-// scratch. C % 4 == 0 and C % G == 0.
+// gamma, beta: (C,) fp32; part: (N, G, nb) double2 scratch; ticket: N
+// unsigned, zero (and zero again after the call); a, d: (N, C) fp32 scratch.
+// nb blocks of rpb rows per sample (ops/fused_groupnorm.py::stats_plan).
+// C % 4 == 0 and C % G == 0.
 extern "C" int uav_fused_group_norm(const void* x, const void* gamma, const void* beta,
-                                    void* part, void* a, void* d, void* y, int N, int rows,
-                                    int C, int G, int nblk, float eps, int fp32, int silu,
-                                    void* stream) {
-  if (N < 1 || rows < 1 || C % 4 != 0 || G < 1 || C % G != 0 || nblk < 1 || nblk > rows)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (fp32)
-    return (int)run<true>(x, gamma, beta, part, a, d, y, N, rows, C, G, nblk, eps, silu, st);
-  return (int)run<false>(x, gamma, beta, part, a, d, y, N, rows, C, G, nblk, eps, silu, st);
+                                    void* part, void* ticket, void* a, void* d, void* y, int N,
+                                    int rows, int C, int G, int nb, int rpb, float eps, int fp32,
+                                    int silu, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const GnStatsArgs p{x, (double2*)part, (unsigned*)ticket, gamma, beta, (float*)a, (float*)d,
+                      rows, C, G, rpb, eps, 1.f, 1};
+  UAV_RETURN_IF(launch_gn_stats(fp32, p, N, nb, st));
+  if (fp32) return (int)launch_apply<true, 4>(x, a, d, y, N, rows, C, nb, rpb, silu, st);
+  if (gn_vec(false, C) == 8)
+    return (int)launch_apply<false, 8>(x, a, d, y, N, rows, C, nb, rpb, silu, st);
+  return (int)launch_apply<false, 4>(x, a, d, y, N, rows, C, nb, rpb, silu, st);
+}
+
+// x: (N, rows, C) bf16 -> a, d: (N, C) fp32 with scale * GN(x) = x * a + d;
+// gamma, beta bf16 (the temporal resblock's first GroupNorm, scale 1/2: the
+// halves its convs' prologue takes). part, ticket, nb, rpb as above.
+extern "C" int uav_gn_stats(const void* x, const void* gamma, const void* beta, void* part,
+                            void* ticket, void* a, void* d, int N, int rows, int C, int G, int nb,
+                            int rpb, float eps, float scale, void* stream) {
+  const GnStatsArgs p{x, (double2*)part, (unsigned*)ticket, gamma, beta, (float*)a, (float*)d,
+                      rows, C, G, rpb, eps, scale, 0};
+  return (int)launch_gn_stats(false, p, N, nb, (cudaStream_t)stream);
 }

@@ -1,8 +1,8 @@
 // Temporal resblock out = x + conv2(silu(gn2(conv1(silu(gn1(x))) + b1 + temb))) + b2
-// with conv1 (k,1,1) and conv2 (3,1,1), in five launches:
-//   gn_partials(x)   per-(block, channel) sums of x and x^2
-//   gn_finalize      per-(sample, group) mean/rstd, folded into a per-(sample,
-//                    channel) affine a1, d1 (fixed summation order: deterministic)
+// with conv1 (k,1,1) and conv2 (3,1,1), in four launches:
+//   gn_stats(x)      per-(sample, group) sums of x and x^2, and in its last
+//                    block the mean/rstd, folded into a per-(sample, channel)
+//                    affine a1, d1 (fixed summation order: deterministic)
 //   K1               h1 = conv1(silu(x*a1 + d1)) + b1 + temb, and the
 //                    per-(tile, channel) sums of the rounded h1 and h1^2 for GN2
 //   gn_finalize      GN2 affine from those sums (no second read of h1)
@@ -145,18 +145,12 @@ int launch_resblock_conv(const void* in, const void* w, int K, int B, int T, int
 
 using namespace uav;
 
-// x: (B, rows, C) bf16 -> part: (B, nblk, C, 2) fp32.
-extern "C" int uav_gn_partials(const void* x, void* part, int B, int rows, int C, int nblk,
-                               void* stream) {
-  return (int)launch_gn_partials(false, x, part, B, rows, C, nblk, (cudaStream_t)stream);
-}
-
 // part: (B, nblk, C, 2) -> a, d: (B, C) fp32 with GN(x) / 2 = x * a + d, the
 // halves the convs' prologue takes (silu_affine2); gamma, beta bf16.
 extern "C" int uav_gn_finalize(const void* part, const void* gamma, const void* beta, void* a,
                                void* d, int B, int nblk, int C, int G, float count, float eps,
                                void* stream) {
-  return (int)launch_gn_finalize(false, part, gamma, beta, a, d, B, nblk, C, G, count, eps, 0.5f,
+  return (int)launch_gn_finalize(part, gamma, beta, a, d, B, nblk, C, G, count, eps, 0.5f,
                                  (cudaStream_t)stream);
 }
 
@@ -164,7 +158,7 @@ extern "C" int uav_gn_finalize(const void* part, const void* gamma, const void* 
 //   K1 (part given): + temb, and the GN2 sums into part (B, T * m_tiles, C, 2);
 //   K2 (res given):  + res.
 // in, res, out: (B, T, HW, C) bf16, 16-byte aligned; a, d: (B, C) fp32 from
-// uav_gn_finalize;
+// uav_gn_stats (GN1) or uav_gn_finalize (GN2);
 // w: (K, C, C) bf16, tap major, each tap a (Cout, Cin) matrix; bias: (C,)
 // bf16; temb: (B, C) fp32 or null. C a multiple of 64. tile_rows is the
 // caller's m-tile height (64 or 128, which sizes part); the call is refused

@@ -66,16 +66,27 @@ class CrossAttention(nn.Module):
 
 
 class RelativePositionBias(nn.Module):
+    """The T5 bias: a (buckets, H) table looked up at the bucket of each
+    (query, key) frame pair. The lookup's index depends only on T, so it is
+    made once per (T, device) and kept outside the state dict; the table is
+    read anew on every call, so the bias follows new weights."""
+
     def __init__(self, heads: int, num_buckets: int = 32, max_distance: int = 32):
         super().__init__()
         self.num_buckets, self.max_distance = num_buckets, max_distance
         self.relative_attention_bias = nn.Embedding(num_buckets, heads)
+        self._index = {}  # (T, device) -> (H, T, T) positions in the flattened table
 
     def forward(self, t: int) -> torch.Tensor:
-        """(H, T, T) bias for T frames."""
-        buckets = relative_position_buckets(t, self.num_buckets, self.max_distance)
-        idx = torch.as_tensor(buckets.astype(np.int64), device=self.relative_attention_bias.weight.device)
-        return self.relative_attention_bias.weight[idx].permute(2, 0, 1)
+        """(H, T, T) bias for T frames, contiguous, in the table's dtype."""
+        table = self.relative_attention_bias.weight
+        idx = self._index.get((t, table.device))
+        if idx is None:
+            buckets = relative_position_buckets(t, self.num_buckets, self.max_distance)
+            heads = table.shape[1]
+            flat = buckets[None].astype(np.int64) * heads + np.arange(heads)[:, None, None]
+            idx = self._index[(t, table.device)] = torch.as_tensor(flat, device=table.device)
+        return table.reshape(-1)[idx]
 
 
 class TemporalAttention(nn.Module):

@@ -45,11 +45,11 @@ _SIGNATURES = {
     "uav_temporal_attention_block": [_P] * 12 + [_I] * 6 + [_F, _I, _P],
     "uav_cross_attention_block": [_P] * 7 + [_I] * 6 + [_F, _I, _P],
     "uav_fused_feedforward": [_P] * 10 + [_I, _I, _F, _I, _P],
-    "uav_gn_partials": [_P, _P, _I, _I, _I, _I, _P],
+    "uav_gn_stats": [_P] * 7 + [_I] * 6 + [_F, _F, _P],
     "uav_gn_finalize": [_P] * 5 + [_I] * 4 + [_F, _F, _P],
     "uav_resblock_conv": [_P, _P, _P, _P, _I] + [_P] * 5 + [_I] * 5 + [_P],
-    "uav_fused_temporal_attention": [_P] * 5 + [_I] * 4 + [_P],
-    "uav_fused_group_norm": [_P] * 7 + [_I] * 5 + [_F, _I, _I, _P],
+    "uav_fused_temporal_attention": [_P] * 5 + [_I] * 6 + [_P],
+    "uav_fused_group_norm": [_P] * 8 + [_I] * 6 + [_F, _I, _I, _P],
     "uav_temporal_conv_bias": [_P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
@@ -143,7 +143,30 @@ def sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+_tickets: Dict[torch.device, torch.Tensor] = {}
+
+
+def tickets(device: torch.device, n: int) -> torch.Tensor:
+    """``n`` zeroed unsigned counters on the card for kernels whose last
+    block per sample finishes the work (the GroupNorm statistics): the block
+    that draws a sample's last ticket resets it, so one set per device
+    serves every launch on the stream (grown, zeroed, when a launch needs
+    more)."""
+    t = _tickets.get(device)
+    if t is None or t.numel() < n:
+        t = _tickets[device] = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
+    return t
+
+
+# the current stream's raw handle without building a torch.cuda.Stream (a few
+# microseconds of host time per launch); builds without it take the long way
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
 def stream_ptr(device: torch.device) -> int:
+    """The handle of ``device``'s current CUDA stream, which kernels launch on."""
+    if _raw_stream is not None:
+        return _raw_stream(torch.cuda.current_device() if device.index is None else device.index)
     return torch.cuda.current_stream(device).cuda_stream
 
 

@@ -1,13 +1,14 @@
 """Temporal resblock ``x + conv2(silu(gn2(conv1(silu(gn1(x))) + b1 + temb))) + b2``
-with (k,1,1) and (3,1,1) temporal convs, on the card in five launches.
+with (k,1,1) and (3,1,1) temporal convs, on the card in four launches.
 
 Replaces ``upscale_a_video_tpu/ops/fused_temporal_resblock.py::
 fused_temporal_resblock`` (Pallas K1 and K2); the CUDA kernels are in
 ``csrc/fused_temporal_resblock.cu``: both convs run on the GEMM core of
 ``csrc/gemm_core.cuh`` (shared with ``temporal_conv`` and the feed-forward)
-with the GroupNorm + SiLU applied to the A operand in registers, and the
-statistics kernels are shared with ``fused_groupnorm``. GroupNorm statistics
-reduce over (T, H, W, C/G) per sample, torch's 5-D GroupNorm.
+with the GroupNorm + SiLU applied to the A operand in registers; the first
+GroupNorm's statistics pass (its finalize in the last block) is
+``fused_groupnorm``'s. GroupNorm statistics reduce over (T, H, W, C/G) per
+sample, torch's 5-D GroupNorm.
 """
 
 from __future__ import annotations
@@ -18,21 +19,10 @@ import torch
 import torch.nn.functional as F
 
 from . import _cuda
+from .fused_groupnorm import fold_affine, stats_plan
 from .temporal_conv import taps_operand, temporal_conv_plain
 
 BIG_TILE = (128, 256)  # the resblock convs' big tile (csrc/fused_temporal_resblock.cu)
-
-
-def _fold(mean, var, weight, bias, eps: float):
-    """Per-(sample, group) mean and variance, (B, G) fp32, and the affine →
-    GroupNorm as y = x·a + d with a, d: (B, C) fp32."""
-    b, groups = mean.shape
-    c = weight.shape[0]
-    rstd = torch.rsqrt(var + eps)
-    w = weight.float().reshape(groups, c // groups)
-    a = (rstd[:, :, None] * w).reshape(b, c)
-    d = (bias.float().reshape(groups, c // groups) - (mean * rstd)[:, :, None] * w).reshape(b, c)
-    return a, d
 
 
 def gn_affine(x: torch.Tensor, weight, bias, groups: int, eps: float):
@@ -41,7 +31,7 @@ def gn_affine(x: torch.Tensor, weight, bias, groups: int, eps: float):
     b, c = x.shape[0], x.shape[-1]
     xf = x.float().reshape(b, -1, groups, c // groups)
     mean = xf.mean(dim=(1, 3))
-    return _fold(mean, (xf * xf).mean(dim=(1, 3)) - mean * mean, weight, bias, eps)
+    return fold_affine(mean, (xf * xf).mean(dim=(1, 3)) - mean * mean, weight, bias, eps)
 
 
 def tile_partials(h: torch.Tensor, hw: int, rows: int) -> torch.Tensor:
@@ -66,7 +56,7 @@ def gn_affine_from_partials(part: torch.Tensor, count: int, weight, bias, groups
     b, _, c, _ = part.shape
     s = part.double().sum(dim=1).reshape(b, groups, c // groups, 2).sum(dim=2)
     mean = (s[..., 0] / count).float()
-    return _fold(mean, (s[..., 1] / count).float() - mean * mean, weight, bias, eps)
+    return fold_affine(mean, (s[..., 1] / count).float() - mean * mean, weight, bias, eps)
 
 
 def fused_temporal_resblock_plain(x, n1_w, n1_b, w1, b1, temb_proj, n2_w, n2_b, w2, b2,
@@ -115,9 +105,27 @@ def partial_rows(t: int, hw: int, rows: int) -> int:
     return t * -(-hw // rows)
 
 
-def _gn_on_card(lib, part, weight, bias, groups, count, eps, stream):
-    """The finalize kernel on partial sums (B, P, C, 2): a / 2 and d / 2 of the
-    GroupNorm, the halves the convs' prologue takes."""
+def _gn1_on_card(lib, x, weight, bias, groups, eps, stream):
+    """The statistics pass with its finalize on x (B, T, HW, C): a / 2 and
+    d / 2 of the first GroupNorm, the halves the convs' prologue takes."""
+    b, c = x.shape[0], x.shape[-1]
+    rows = x.numel() // (b * c)
+    nb, rpb = stats_plan(b, rows, c, False, _cuda.sm_count(x.device))
+    part = torch.empty(b, groups, nb, 2, device=x.device, dtype=torch.float64)
+    a = torch.empty(b, c, device=x.device, dtype=torch.float32)
+    d = torch.empty_like(a)
+    wt = _cuda.weight(weight, torch.bfloat16, "gn weight")
+    bs = _cuda.weight(bias, torch.bfloat16, "gn bias")
+    _cuda.check(lib.uav_gn_stats(x.data_ptr(), wt.data_ptr(), bs.data_ptr(), part.data_ptr(),
+                                 _cuda.tickets(x.device, b).data_ptr(), a.data_ptr(),
+                                 d.data_ptr(), b, rows, c, groups, nb, rpb, float(eps), 0.5,
+                                 stream), "gn_stats")
+    return a, d
+
+
+def _gn2_on_card(lib, part, weight, bias, groups, count, eps, stream):
+    """The finalize kernel on the first conv's partial sums (B, P, C, 2):
+    a / 2 and d / 2 of the second GroupNorm."""
     b, nblk, c, _ = part.shape
     a = torch.empty(b, c, device=part.device, dtype=torch.float32)
     d = torch.empty_like(a)
@@ -146,11 +154,7 @@ def fused_temporal_resblock(x, n1_w, n1_b, w1, b1, temb_proj, n2_w, n2_b, w2, b2
     stream = _cuda.stream_ptr(x.device)
     xf = _cuda.tma_operand(x, "x")
     rows = t * hw
-    nblk1 = max(1, min(256, rows // 64))
-    part1 = torch.empty(b, nblk1, c, 2, device=x.device, dtype=torch.float32)
-    _cuda.check(lib.uav_gn_partials(xf.data_ptr(), part1.data_ptr(), b, rows, c, nblk1, stream),
-                "gn_partials")
-    a1, d1 = _gn_on_card(lib, part1, n1_w, n1_b, groups, rows * (c // groups), eps, stream)
+    a1, d1 = _gn1_on_card(lib, xf, n1_w, n1_b, groups, eps, stream)
     temb = None if temb_proj is None else _cuda.operand(temb_proj.float(), torch.float32, "temb")
     w1t, w2t = taps_operand(w1, "conv1 weight"), taps_operand(w2, "conv2 weight")
     b1t = _cuda.weight(b1, torch.bfloat16, "b1")
@@ -162,7 +166,7 @@ def fused_temporal_resblock(x, n1_w, n1_b, w1, b1, temb_proj, n2_w, n2_b, w2, b2
                                       w1t.data_ptr(), w1t.shape[0], b1t.data_ptr(),
                                       _cuda.ptr(temb), None, h1.data_ptr(), part2.data_ptr(),
                                       b, t, hw, c, tm, stream), "resblock conv1")
-    a2, d2 = _gn_on_card(lib, part2, n2_w, n2_b, g2, rows * (c // g2), eps, stream)
+    a2, d2 = _gn2_on_card(lib, part2, n2_w, n2_b, g2, rows * (c // g2), eps, stream)
     out = torch.empty_like(xf)
     _cuda.check(lib.uav_resblock_conv(h1.data_ptr(), a2.data_ptr(), d2.data_ptr(),
                                       w2t.data_ptr(), w2t.shape[0], b2t.data_ptr(), None,
