@@ -48,6 +48,22 @@ Phases (each announced on a flushed line with the seconds elapsed):
               the decode alone with the kernels against the plain decode
               (relative L2 gate), and a 2-step pair against the plain
               versions.
+  6. path 3   the README's headline command with ``-p 24,26,28``: the
+              pipeline from ``load_pipeline(random_init=True,
+              use_video_vae=True)`` and RAFT from ``load_raft(None)`` at
+              released widths; RAFT's bidirectional flows of path 2's clip
+              (4 + 4 pairs, 20 iterations, fp32) timed on the card and held
+              against the same RAFT on the CPU (relative L2 gate), with the
+              share of pixels the consistency mask keeps in each sweep;
+              ``propagate_latents`` on the card against the CPU on the same
+              x̂0 and flows (RAFT's, and a consistent whole-pixel shift so
+              that the warp and the fusion act);
+              then the pipeline with those flows and propagation at steps 24,
+              26 and 28 (30 steps, CFG 6, noise level 120, w_lr 1.0) and the
+              Wavelet fix: frames/s with and without RAFT, peak memory,
+              exactly 3 propagations and 480 fused temporal attentions; then
+              the VAE encoder on 3 output frames with the kernels against the
+              plain versions (relative L2 gate; flash in its mid block).
 
 It exits non-zero, printing no result, without a CUDA device. Any failure
 raises. The last line is the JSON result; the two lines before it are the
@@ -63,6 +79,7 @@ before/after measure of a kernel, also against an older checkout's package.
 from __future__ import annotations
 
 import contextlib
+import copy
 import json
 import os
 import re
@@ -75,6 +92,8 @@ import torch
 import torch.nn.functional as F
 
 from upscale_a_video_tpu_torch.config import VIDEO_VAE
+from upscale_a_video_tpu_torch.models.propagation import fb_consistency_check, propagate_latents
+from upscale_a_video_tpu_torch.models.raft import RaftRunner, compute_bidirectional_flows, load_raft
 from upscale_a_video_tpu_torch.ops import _cuda
 from upscale_a_video_tpu_torch.ops.attention import attention_plain
 from upscale_a_video_tpu_torch.ops.cross_attention_block import (
@@ -90,7 +109,8 @@ from upscale_a_video_tpu_torch.ops.fused_temporal_resblock import (
 from upscale_a_video_tpu_torch.ops.temporal_attention_block import (
     fused_temporal_attention_block, temporal_attention_block_plain)
 from upscale_a_video_tpu_torch.ops.temporal_conv import temporal_conv, temporal_conv_plain
-from upscale_a_video_tpu_torch.pipeline import random_pipeline
+from upscale_a_video_tpu_torch.ops.warp import flow_warp
+from upscale_a_video_tpu_torch.pipeline import load_pipeline, random_pipeline
 from upscale_a_video_tpu_torch.pipeline.color import apply_color_fix
 
 T0 = time.time()
@@ -100,8 +120,12 @@ PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 KERNEL_TOL = 2e-2     # max |kernel - plain| / max |plain|: a few bf16 ulps of the largest value
 UNET_TOL = 5e-2       # relative L2, whole bf16 UNet (~60 rounded layers)
 DECODE_TOL = 1e-2     # relative L2, fp32 decode whose one bf16 step is the mid-block attention
+FLOW_TOL = 1e-2       # relative L2, RAFT's fp32 flows on the card against the CPU (20 iterations)
+PROP_TOL = 1e-5       # max |card - CPU|, fp32 propagation of the same x̂0 along the same flows
+ENCODE_TOL = 1e-2     # relative L2, fp32 encode whose one bf16 step is the mid-block attention
 FRAMES, LR, STEPS = 14, 64, 30            # path 1: 64x64, 14 frames
-FRAMES2, H2, W2 = 5, 96, 160              # path 2: 96x160, 5 frames
+FRAMES2, H2, W2 = 5, 96, 160              # path 2 (and 3): 96x160, 5 frames
+PROP_STEPS = (24, 26, 28)                 # path 3: the headline command's -p 24,26,28
 # temporal resblock sites (B, T, H, W, C, k): TemporalModule3D (k = 5, with
 # temb) and the Transformer3D entry resblock (k = 3, no temb) at C <= 512,
 # after the CFG duplication (path 1: 2 windows x 2 rows; path 2: 2 rows) or
@@ -694,6 +718,148 @@ def run_path2(pipe, card: str, checked):
                 peak_gib=peak / 2**30)
 
 
+def rel_l2(a, b) -> float:
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def mask_shares(flows_f, flows_b):
+    """Per sweep, the share of pixels the consistency check keeps, over the
+    frames (the backward sweep checks the forward flow against the backward
+    one, the forward sweep the reverse), at the latent size (= the LR size)."""
+    fwd = [fb_consistency_check(flows_f[:, i], flows_b[:, i], 1e-3, 0.05).mean().item()
+           for i in range(flows_f.shape[1])]
+    bwd = [fb_consistency_check(flows_b[:, i], flows_f[:, i], 1e-3, 0.05).mean().item()
+           for i in range(flows_f.shape[1])]
+    return dict(backward_sweep=float(np.mean(fwd)), forward_sweep=float(np.mean(bwd)))
+
+
+def run_path3(card: str, checked):
+    """The headline command with ``-p 24,26,28``: RAFT's flows on the card
+    (against the CPU), the propagation (against the CPU), the pipeline with
+    propagation and the colour fix, then the encoder against its plain run."""
+    t0 = time.time()
+    pipe = load_pipeline(random_init=True, use_video_vae=True, device="cuda")
+    raft = load_raft(None, device="cuda")
+    torch.cuda.synchronize()
+    log(f"built the pipeline (load_pipeline, video VAE) and RAFT in {time.time() - t0:.1f} s")
+    g = torch.Generator(device="cuda").manual_seed(3)
+    image = torch.rand((1, FRAMES2, H2, W2, 3), generator=g, device="cuda") * 2 - 1
+
+    # RAFT, cold then warm, and the same RAFT on the CPU
+    torch.cuda.synchronize()
+    t0 = time.time()
+    compute_bidirectional_flows(raft, image)
+    torch.cuda.synchronize()
+    raft_cold = time.time() - t0
+    t0 = time.time()
+    flows = compute_bidirectional_flows(raft, image)
+    torch.cuda.synchronize()
+    raft_secs = time.time() - t0
+    cpu_raft = RaftRunner(copy.deepcopy(raft.model).cpu(), raft.iters)
+    t0 = time.time()
+    cpu_flows = compute_bidirectional_flows(cpu_raft, image.cpu())
+    cpu_secs = time.time() - t0
+    flow_rel = max(rel_l2(f.cpu(), c) for f, c in zip(flows, cpu_flows))
+    shares = mask_shares(*flows)
+    log(f"RAFT flows {tuple(flows[0].shape)} x2 ({FRAMES2 - 1} + {FRAMES2 - 1} pairs, "
+        f"{raft.iters} iterations, fp32): {raft_secs:.3f} s warm, {raft_cold:.3f} s cold "
+        f"(CPU {cpu_secs:.2f} s); rel L2 card vs CPU = {flow_rel:.3e} (tol {FLOW_TOL}); "
+        f"|flow| mean {flows[0].abs().mean().item():.3f} max {flows[0].abs().max().item():.3f}; "
+        f"consistency mask keeps {json.dumps(shares)}")
+    if not (all(torch.isfinite(f).all() for f in flows) and flow_rel <= FLOW_TOL):
+        raise AssertionError(f"RAFT on the card disagrees with the CPU: {flow_rel:.3e}")
+
+    # propagation of one x̂0 along RAFT's flows, and along a consistent pair
+    # that moves it: a whole-pixel shift (2, 1) plus a smooth part under
+    # 0.05 px, backward = -forward, so that no mask decision and no nearest
+    # rounding lies within rounding error of its boundary (a sample on a
+    # half pixel can round one way on the card and the other on the CPU)
+    x0 = torch.randn((1, FRAMES2, H2, W2, 4), generator=g, device="cuda")
+    shift = flows[0].new_tensor([2.0, 1.0]) + 0.05 * torch.tanh(flows[0])
+    prop_err = {}
+    for name, (ff, fb) in (("raft", flows), ("shift", (shift, -shift))):
+        out = propagate_latents(x0, ff, fb)
+        ref = propagate_latents(x0.cpu(), ff.cpu(), fb.cpu())
+        prop_err[name] = (out.cpu() - ref).abs().max().item()
+        log(f"propagate_latents ({name} flows, mask keeps {json.dumps(mask_shares(ff, fb))}): "
+            f"max |card - CPU| = {prop_err[name]:.3e} (tol {PROP_TOL}), "
+            f"|out - x0| max {(out - x0).abs().max().item():.3f}")
+        if not (torch.isfinite(out).all() and prop_err[name] <= PROP_TOL):
+            raise AssertionError(f"propagation on the card disagrees with the CPU: "
+                                 f"{prop_err[name]:.3e}")
+    # (RAFT flow, -RAFT flow), reported, not gated: the decisions that differ
+    # between the card and the CPU, and what they do to the propagation
+    ff = flows[0]
+    flips = ties = 0
+    for a, b in ((ff, -ff), (-ff, ff)):
+        for i in range(ff.shape[1]):
+            flips += int((fb_consistency_check(a[:, i], b[:, i], 1e-3, 0.05).cpu()
+                          != fb_consistency_check(a[:, i].cpu(), b[:, i].cpu(), 1e-3, 0.05)).sum())
+            near = (flow_warp(x0[:, i], a[:, i], "nearest").cpu()
+                    - flow_warp(x0[:, i].cpu(), a[:, i].cpu(), "nearest"))
+            ties += int((near.abs() > PROP_TOL).any(-1).sum())
+    diff = (propagate_latents(x0, ff, -ff).cpu() - propagate_latents(x0.cpu(), ff.cpu(), -ff.cpu()))
+    log(f"(RAFT flow, -RAFT flow), reported, not gated: of {2 * ff[..., 0].numel()} each, {flips} "
+        f"mask decisions and {ties} nearest samples differ between the card and the CPU; "
+        f"propagation max |card - CPU| {diff.abs().max().item():.3e}, "
+        f"{int((diff.abs() > PROP_TOL).sum())} of {diff.numel()} values beyond {PROP_TOL}")
+
+    # end to end with the flows, propagation at steps 24, 26, 28, and the colour fix
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launch_counts()
+    t0 = time.time()
+    out = pipe("a video", image, num_inference_steps=STEPS, guidance_scale=6.0, noise_level=120,
+               w_lr=1.0, flows_bi=flows, propagation_steps=PROP_STEPS,
+               generator=torch.Generator(device="cuda").manual_seed(4))
+    fixed = apply_color_fix("Wavelet", out[0], image[0])[None]
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    launches, shapes = dict(_cuda.LAUNCHES), launch_shapes()
+    peak = torch.cuda.max_memory_allocated()
+    fps, fps_raft = FRAMES2 / secs, FRAMES2 / (secs + raft_secs)
+    log(f"path 3 e2e: {FRAMES2} frames {H2}x{W2} -> {tuple(fixed.shape)}, propagation at steps "
+        f"{pipe.propagated_steps}: {secs:.2f} s ({fps:.4f} frames/s), with RAFT "
+        f"{secs + raft_secs:.2f} s ({fps_raft:.4f} frames/s) on {card}")
+    log(f"max_memory_allocated={peak / 2**30:.2f} GiB")
+    check_output(out, (1, FRAMES2, 4 * H2, 4 * W2, 3))
+    if fixed.shape != out.shape or not torch.isfinite(fixed).all():
+        raise AssertionError("colour-fixed output has the wrong shape or is not finite")
+    if pipe.propagated_steps != PROP_STEPS:
+        raise AssertionError(f"propagation ran at steps {pipe.propagated_steps}, not {PROP_STEPS}")
+    check_launches("path 3", launches, shapes, PATH2_KERNELS, checked)
+    if launches["fused_temporal_attention"] != 16 * STEPS or launches["temporal_attention_block"]:
+        raise AssertionError("path 3 must run its 16 temporal attentions per step through the "
+                             "fused temporal attention and none through the whole-block kernel")
+
+    # the encoder on 3 output frames, with the kernels against the plain versions
+    frames = out[:, :3].contiguous()
+    with torch.no_grad():
+        _cuda.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        moments = pipe.m.vae.encode_moments(frames)
+        torch.cuda.synchronize()
+        encode_secs = time.time() - t0
+        enc_launches, enc_shapes = dict(_cuda.LAUNCHES), launch_shapes()
+        with _cuda.plain_path():
+            moments_ref = pipe.m.vae.encode_moments(frames)
+    enc_rel = rel_l2(moments, moments_ref)
+    log(f"encode_moments {tuple(frames.shape)} -> {tuple(moments.shape)}: {encode_secs:.3f} s; "
+        f"rel L2 kernels vs plain = {enc_rel:.3e} (tol {ENCODE_TOL})")
+    check_launches("path 3 encoder", enc_launches, enc_shapes, ("flash_attention",), checked)
+    if not (torch.isfinite(moments).all() and enc_rel <= ENCODE_TOL):
+        raise AssertionError(f"the encoder with kernels disagrees with the plain encoder: "
+                             f"{enc_rel:.3e}")
+    return dict(launches=launches, launches_by_shape=shapes, seconds=secs,
+                raft_seconds=raft_secs, raft_cold_seconds=raft_cold, raft_cpu_seconds=cpu_secs,
+                flow_rel_l2=flow_rel, mask_share=shares, propagation_max_err=prop_err,
+                propagated_steps=list(pipe.propagated_steps), frames=FRAMES2,
+                frames_per_s=fps, frames_per_s_with_raft=fps_raft, peak_gib=peak / 2**30,
+                encode_seconds=encode_secs, encode_rel_l2=enc_rel,
+                encode_launches=enc_launches)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -760,15 +926,20 @@ def main() -> int:
     del pipe
     torch.cuda.empty_cache()
 
-    paths = {"path1": path1, "path2": path2}
+    phase("path 3: the headline command with -p 24,26,28 (RAFT, propagation, encoder)")
+    path3 = run_path3(card, checked)
+    torch.cuda.empty_cache()
+
+    paths = {"path1": path1, "path2": path2, "path3": path3}
     by_key = {(r["name"], json.dumps(r["shape"])): r for r in recs}
     for name, p in paths.items():  # fault C1 in one run: the kernels against the plain route
         per_kernel = p["kernel_seconds"] = kernel_seconds(p["launches_by_shape"], by_key)
         kern, plain = (sum(v[r] for v in per_kernel.values()) for r in ("kernels", "plain"))
         each = ", ".join(f"{k} {v['kernels']:.3f}/{v['plain']:.3f}" for k, v in per_kernel.items())
+        route = (f" against the plain route {p['plain_seconds']:.2f} s"
+                 if "plain_seconds" in p else "")
         log(f"{name}: kernels as isolated calls {kern:.3f} s against their plain versions "
-            f"{plain:.3f} s ({each}); e2e {p['seconds']:.2f} s against the plain route "
-            f"{p['plain_seconds']:.2f} s")
+            f"{plain:.3f} s ({each}); e2e {p['seconds']:.2f} s{route}")
     with open("chiprun_out/chip_smoke_kernels.json", "w") as f:
         json.dump({"card": card, "steps": STEPS, "build_seconds": build_secs, "paths": paths,
                    "kernels": recs}, f, indent=1)

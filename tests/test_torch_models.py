@@ -3,7 +3,8 @@ UNet forward (with and without the CFG shared prefix, both dispatch routes),
 the tiny 3D-VAE decode and a tiny CLIP, all in float32 from the same
 weights; and, at released width, that the converted JAX parameter trees give
 exactly the port's state-dict keys and shapes (``jax.eval_shape`` and the
-``meta`` device: nothing is allocated).
+``meta`` device: nothing is allocated): the UNet, the whole VAE (encoder
+included), CLIP, and both RAFT variants.
 """
 
 import jax
@@ -18,13 +19,16 @@ from upscale_a_video_tpu.models import AutoencoderKLVideo as JVae
 from upscale_a_video_tpu.models import UNetVideoModel as JUNet
 from upscale_a_video_tpu.models.clip_text import CLIPTextConfig as JClipConfig
 from upscale_a_video_tpu.models.clip_text import CLIPTextModel as JClip
+from upscale_a_video_tpu.models.raft import RAFT as JRaft
 from upscale_a_video_tpu_torch import resolve_device
 from upscale_a_video_tpu_torch.config import UNetVideoConfig, VaeConfig
 from upscale_a_video_tpu_torch.models import (AutoencoderKLVideo, CLIPTextConfig, CLIPTextModel,
                                               UNetVideoModel)
+from upscale_a_video_tpu_torch.models.raft import RAFT
 from upscale_a_video_tpu_torch.ops import _cuda
 from upscale_a_video_tpu_torch.weights import (CLIP_RENAMES, flatten_tree, init_random_,
-                                               to_state_dict, torch_key, torch_shape)
+                                               raft_state_dict, to_state_dict, torch_key,
+                                               torch_shape)
 
 torch.set_num_threads(1)
 
@@ -97,7 +101,8 @@ def test_vae_decode():
     rng = np.random.default_rng(2)
     z = rand(rng, 1, 3, 4, 4, 4)
     jm = JVae(JVaeConfig(**TINY_VAE))
-    params = jm.init(jax.random.PRNGKey(1), z, method=jm.decode)["params"]
+    # the whole VAE's tree (the port's VAE carries the encoder too)
+    params = jm.init(jax.random.PRNGKey(1), np.zeros((1, 1, 16, 16, 3), np.float32))["params"]
     flat = perturbed(params, 3)
     tm = AutoencoderKLVideo(VaeConfig(**TINY_VAE)).eval()
     tm.load_state_dict(to_state_dict(flat), strict=True)
@@ -145,16 +150,47 @@ def test_full_width_unet_keys_and_shapes():
 
 def test_full_width_vae_decoder_and_clip_keys_and_shapes():
     jv = JVae(JVaeConfig())
-    tree = jax.eval_shape(lambda: jv.init(jax.random.PRNGKey(0), jnp.zeros((1, 1, 8, 8, 4)),
-                                          method=jv.decode))["params"]
+    tree = jax.eval_shape(lambda: jv.init(jax.random.PRNGKey(0),
+                                          jnp.zeros((1, 1, 16, 16, 3))))["params"]
     with torch.device("meta"):
         tv = AutoencoderKLVideo(VaeConfig())
         tc = CLIPTextModel(CLIPTextConfig())
-    assert _port_keyset(tv) == _keyset(tree)
+    want = _keyset(tree)
+    assert _port_keyset(tv) == want
+    assert "encoder.down_blocks.0.downsamplers.0.conv.weight" in want
+    assert want["quant_conv.weight"] == (8, 8, 1, 1)
     jc = JClip(JClipConfig())
     ctree = jax.eval_shape(lambda: jc.init(jax.random.PRNGKey(0),
                                            jnp.zeros((1, 77), jnp.int32)))["params"]
     assert _port_keyset(tc) == _keyset(ctree, CLIP_RENAMES)
+
+
+@pytest.mark.parametrize("small", [False, True], ids=["raft-things", "raft-small"])
+def test_full_width_raft_keys_and_shapes(small):
+    """The JAX RAFT tree through ``raft_state_dict`` gives exactly the port
+    RAFT's keys and shapes: BatchNorm running statistics and
+    ``num_batches_tracked``, each downsampling norm also as
+    ``downsample.1``; raft-things has 5,257,536 parameters (179 entries)."""
+    jm = JRaft(small=small)
+    d = jnp.zeros((1, 64, 64, 3))
+    tree = jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0), d, d, 1))["params"]
+    sd = raft_state_dict({p: np.zeros(leaf.shape, np.float32)
+                          for p, leaf in flatten_tree(tree).items()})
+    with torch.device("meta"):
+        tm = RAFT(small=small)
+    want = {k: tuple(v.shape) for k, v in sd.items()}
+    assert _port_keyset(tm) == want
+    params = sum(np.prod(s) for k, s in want.items()
+                 if not k.endswith(("running_mean", "running_var", "num_batches_tracked"))
+                 and ".downsample.1." not in k)
+    if small:
+        assert params == 990162 and len(want) == 106
+    else:
+        assert params == 5257536 and len(want) == 179
+        assert want["update_block.mask.2.weight"] == (576, 256, 1, 1)
+        assert want["cnet.layer2.0.downsample.1.running_var"] == (96,)
+        assert want["cnet.layer2.0.norm3.num_batches_tracked"] == ()
+        assert want["update_block.encoder.conv.weight"] == (126, 256, 3, 3)
 
 
 def test_key_rules():

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: it imports neither JAX/Flax nor the JAX
 package (nor cv2, imageio or PIL), and reads nothing under /root/reference.
-``chip_smoke.py`` likewise."""
+``chip_smoke.py`` likewise. Importing it needs no ``regex`` either: the BPE
+tokenizer imports it only when one is built (the card machine has none)."""
 
 import ast
 import os
@@ -37,7 +38,7 @@ def test_source_imports_nothing_forbidden(path):
 def test_port_and_chip_smoke_import_with_jax_blocked():
     code = (
         "import sys\n"
-        "for m in ('jax', 'flax', 'upscale_a_video_tpu', 'cv2', 'imageio', 'PIL'):\n"
+        "for m in ('jax', 'flax', 'upscale_a_video_tpu', 'cv2', 'imageio', 'PIL', 'regex'):\n"
         "    sys.modules[m] = None\n"
         "import upscale_a_video_tpu_torch, upscale_a_video_tpu_torch.pipeline\n"
         "import upscale_a_video_tpu_torch.ops.flash_attention\n"
@@ -47,6 +48,12 @@ def test_port_and_chip_smoke_import_with_jax_blocked():
         "import upscale_a_video_tpu_torch.ops.temporal_conv\n"
         "import upscale_a_video_tpu_torch.ops.resize\n"
         "import upscale_a_video_tpu_torch.pipeline.color\n"
+        "import upscale_a_video_tpu_torch.pipeline.loader\n"
+        "import upscale_a_video_tpu_torch.models.raft\n"
+        "import upscale_a_video_tpu_torch.models.propagation\n"
+        "import upscale_a_video_tpu_torch.ops.warp\n"
+        "import upscale_a_video_tpu_torch.utils.clip_bpe\n"
+        "import upscale_a_video_tpu_torch.utils.flow_viz\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', "
         "'upscale_a_video_tpu') and sys.modules[m] is not None]\n"

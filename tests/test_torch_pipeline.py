@@ -74,7 +74,8 @@ def both():
                   JClip(JClipConfig(**TINY_CLIP)))
     up = perturbed(ju.init(jax.random.PRNGKey(0), latents[:, :8], 0, image[:, :8],
                            np.zeros((1, 77, 16), np.float32), 0)["params"], 1)
-    vp = perturbed(jv.init(jax.random.PRNGKey(1), latents[:, :1], method=jv.decode)["params"], 2)
+    vp = perturbed(jv.init(jax.random.PRNGKey(1), np.zeros((1, 1, 4 * H, 4 * W, 3),
+                                                            np.float32))["params"], 2)
     cp = perturbed(jc.init(jax.random.PRNGKey(2), np.zeros((1, 77), np.int32))["params"], 3)
 
     sched_cfg = dict(beta_schedule="scaled_linear")

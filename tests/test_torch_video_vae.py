@@ -124,7 +124,8 @@ def tiny_video_vae():
     rng = np.random.default_rng(4)
     z, img = rand(rng, 1, 3, 4, 4, 4), rand(rng, 1, 3, 4, 4, 3)
     jm = JVae(JVaeConfig(**TINY_VAE_VIDEO))
-    flat = perturbed(jm.init(jax.random.PRNGKey(1), z, method=jm.decode, img=img)["params"], 5)
+    flat = perturbed(jm.init(jax.random.PRNGKey(1), np.zeros((1, 3, 16, 16, 3), np.float32),
+                             img=img)["params"], 5)
     tm = loaded(AutoencoderKLVideo(VaeConfig(**TINY_VAE_VIDEO)), flat)
     decode = jax.jit(lambda p, z, img, w: jm.apply(p, z, img, w, method=jm.decode),
                      static_argnums=3)
@@ -155,8 +156,7 @@ def test_full_width_video_vae_keys_and_shapes():
               "block_out_channels", "norm_num_groups", "layers_per_block", "scaling_factor"):
         assert getattr(VIDEO_VAE, f) == getattr(jcfg, f), f
     jv = JVae(jcfg)
-    tree = jax.eval_shape(lambda: jv.init(jax.random.PRNGKey(0), jnp.zeros((1, 1, 8, 8, 4)),
-                                          method=jv.decode,
+    tree = jax.eval_shape(lambda: jv.init(jax.random.PRNGKey(0), jnp.zeros((1, 1, 32, 32, 3)),
                                           img=jnp.zeros((1, 1, 8, 8, 3))))["params"]
     with torch.device("meta"):
         tv = AutoencoderKLVideo(VIDEO_VAE)
@@ -164,6 +164,7 @@ def test_full_width_video_vae_keys_and_shapes():
     assert {k: tuple(v.shape) for k, v in tv.state_dict().items()} == want
     assert "decoder.condition_fuse.shared.0.conv_shortcut.weight" in want
     assert "decoder.up_blocks.2.resnets.2.conv_3d.weight" in want
+    assert "encoder.mid_block.attentions.0.query.weight" in want
 
 
 # ------------------------------------------------------ resize, colour fix
@@ -206,7 +207,7 @@ def test_pipeline_with_video_vae_matches_jax_at_five_frames():
                   JClip(JClipConfig(**TINY_CLIP)))
     up = perturbed(ju.init(jax.random.PRNGKey(0), latents, 0, image,
                            np.zeros((1, 77, 16), np.float32), 0)["params"], 1)
-    vp = perturbed(jv.init(jax.random.PRNGKey(1), latents[:, :1], method=jv.decode,
+    vp = perturbed(jv.init(jax.random.PRNGKey(1), np.zeros((1, 1, 4 * h, 4 * w, 3), np.float32),
                            img=image[:, :1])["params"], 2)
     cp = perturbed(jc.init(jax.random.PRNGKey(2), np.zeros((1, 77), np.int32))["params"], 3)
 

@@ -43,13 +43,15 @@ class UNetVideoConfig:
 
 @dataclasses.dataclass(frozen=True)
 class VaeConfig:
-    """AutoencoderKLVideo's decoder config (ref autoencoder_kl_cond_video.py:48-97).
+    """AutoencoderKLVideo's config (ref autoencoder_kl_cond_video.py:48-97).
     The defaults are the released 3D VAE (configs/vae_3d_config.json);
     :data:`VIDEO_VAE` is the released video VAE (configs/vae_video_config.json)."""
 
+    in_channels: int = 3
     out_channels: int = 3
     latent_channels: int = 4
     block_out_channels: Tuple[int, ...] = (128, 256, 512)
+    down_block_types: Tuple[str, ...] = ("DownEncoderBlock3D",) * 3
     up_block_types: Tuple[str, ...] = ("UpDecoderBlock3D",) * 3
     layers_per_block: int = 2
     norm_num_groups: int = 32
@@ -66,6 +68,19 @@ class VaeConfig:
 
 VIDEO_VAE = VaeConfig(up_block_types=("UpDecoderBlock3D_plus",) * 3, condition_img=True,
                       condition_channels=128, use_temporal_block=True)
+
+
+def config_from_dict(cls: type, d: dict):
+    """A config dataclass from a released JSON's dict: keys the dataclass
+    does not have are ignored, lists become tuples, and the UNet's single
+    ``only_cross_attention`` flag is repeated per down block (as
+    ``upscale_a_video_tpu/config.py:57-69`` reads them)."""
+    known = {f.name for f in dataclasses.fields(cls)}
+    kwargs = {k: tuple(v) if isinstance(v, list) else v for k, v in d.items() if k in known}
+    if isinstance(kwargs.get("only_cross_attention"), bool):
+        n = len(kwargs.get("down_block_types", cls.down_block_types))
+        kwargs["only_cross_attention"] = (kwargs["only_cross_attention"],) * n
+    return cls(**kwargs)
 
 
 def resolve_device(device=None) -> torch.device:

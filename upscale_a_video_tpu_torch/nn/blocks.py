@@ -108,13 +108,18 @@ class Upsample3D(nn.Module):
 
 
 class Downsample3D(nn.Module):
-    """Stride-2 3×3 conv with the UNet's symmetric padding 1 (ref resnet.py:161-197)."""
+    """Stride-2 3×3 conv (ref resnet.py:161-197): ``padding=1`` pads both
+    sides (the UNet), ``padding=0`` pads only bottom and right by one (the VAE
+    encoder's ``downsample_padding=0``)."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, padding: int = 1):
         super().__init__()
-        self.conv = InflatedConv(channels, channels, 3, stride=2, padding=1)
+        self.pad_end = padding == 0
+        self.conv = InflatedConv(channels, channels, 3, stride=2, padding=padding)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.pad_end:
+            x = F.pad(x, (0, 0, 0, 1, 0, 1))
         return self.conv(x)
 
 

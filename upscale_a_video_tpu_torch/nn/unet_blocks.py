@@ -1,5 +1,5 @@
-"""UNet down/mid/up blocks and the VAE decoder's mid and up blocks
-(mirror of ``upscale_a_video_tpu/nn/unet_blocks.py``, decode path)."""
+"""UNet down/mid/up blocks and the VAE's encoder, mid and decoder blocks
+(mirror of ``upscale_a_video_tpu/nn/unet_blocks.py``)."""
 
 from __future__ import annotations
 
@@ -152,6 +152,27 @@ class UNetMidBlock3D(nn.Module):
         x = self.resnets[0](x)
         for attn, resnet in zip(self.attentions, self.resnets[1:]):
             x = resnet(attn(x))
+        return x
+
+
+class DownEncoderBlock3D(nn.Module):
+    """VAE encoder stage (ref unet_blocks.py:748-805): resnets, then a
+    stride-2 conv unless it is the last stage."""
+
+    def __init__(self, in_channels, out_channels, num_layers=2, resnet_eps=1e-6,
+                 resnet_groups=32, add_downsample=True, downsample_padding=0):
+        super().__init__()
+        self.resnets = nn.ModuleList([
+            ResnetBlock3D(in_channels if i == 0 else out_channels, out_channels, None,
+                          groups=resnet_groups, eps=resnet_eps) for i in range(num_layers)])
+        self.downsamplers = (nn.ModuleList([Downsample3D(out_channels, downsample_padding)])
+                             if add_downsample else None)
+
+    def forward(self, x):
+        for resnet in self.resnets:
+            x = resnet(x)
+        if self.downsamplers is not None:
+            x = self.downsamplers[0](x)
         return x
 
 

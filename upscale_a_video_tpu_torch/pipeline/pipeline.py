@@ -6,20 +6,24 @@ Mirror of ``upscale_a_video_tpu/pipeline/pipeline.py`` (``__call__`` at
 ``:497-597``) without its TPU execution machinery: the steps are a Python
 loop, each step runs the UNet once on all unique 8-frame windows (CFG rows
 share the text-free prefix, ``cfg_dup``), blends them with the window matrix
-and takes ``step_v0`` then ``step_vt``. The ``latents`` and ``lr_noise``
+and takes ``step_v0``, then, at the step indices in ``propagation_steps``
+when bidirectional flows are given, propagates x̂0 along them (``-p``, ref
+``:330-339``), then takes ``step_vt``. The ``latents`` and ``lr_noise``
 arguments let a caller hand both frameworks identical noise.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Sequence
+from typing import Any, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..config import UNetVideoConfig, VaeConfig, resolve_device
 from ..models import AutoencoderKLVideo, CLIPTextConfig, CLIPTextModel, UNetVideoModel
+from ..models.propagation import propagate_latents
+from ..models.raft import RaftRunner
 from ..sampling import DDIMScheduler, DDIMSchedulerConfig, DDPMScheduler
 from ..weights import init_random_
 from .windows import chunk_starts, unique_window_plan
@@ -27,7 +31,9 @@ from .windows import chunk_starts, unique_window_plan
 
 @dataclasses.dataclass
 class PipelineModules:
-    """``tokenizer`` maps a list of prompts to int (B, 77) token ids."""
+    """``tokenizer`` maps a list of prompts to int (B, 77) token ids;
+    ``raft`` is the flow model of the propagation path, where one was
+    loaded."""
 
     unet: UNetVideoModel
     vae: AutoencoderKLVideo
@@ -35,6 +41,7 @@ class PipelineModules:
     tokenizer: Any
     scheduler: DDIMScheduler
     low_res_scheduler: DDPMScheduler
+    raft: Optional[RaftRunner] = None
 
 
 class FixedTokenizer:
@@ -55,6 +62,7 @@ class VideoUpscalePipeline:
     def __init__(self, modules: PipelineModules, device=None):
         self.m = modules
         self.device = resolve_device(device)
+        self.propagated_steps: Tuple[int, ...] = ()  # step indices of the last call
 
     @property
     def dtype(self) -> torch.dtype:
@@ -134,9 +142,12 @@ class VideoUpscalePipeline:
     def __call__(self, prompt, image, num_inference_steps: int = 30,
                  guidance_scale: float = 6.0, noise_level: int = 120, negative_prompt=None,
                  generator: Optional[torch.Generator] = None, latents=None, lr_noise=None,
-                 w_lr: float = 1.0):
+                 w_lr: float = 1.0, flows_bi=None, propagation_steps: Sequence[int] = ()):
         """image: (B, T, H, W, 3) in [-1, 1] → (B, T, 4H, 4W, 3) fp32 in [-1, 1].
-        ``w_lr`` weighs the LR-frame condition of a video VAE's decoder."""
+        ``w_lr`` weighs the LR-frame condition of a video VAE's decoder.
+        ``flows_bi``: the (forward, backward) flows (B, T-1, H, W, 2) of the
+        LR frames; x̂0 is propagated along them after ``step_v0`` at each
+        step index in ``propagation_steps``."""
         self.check_inputs(prompt, image, noise_level, negative_prompt)
         prompt = [prompt] if isinstance(prompt, str) else prompt
         if isinstance(negative_prompt, str):
@@ -164,16 +175,40 @@ class VideoUpscalePipeline:
             latents = torch.randn((b, t, h, w, latent_ch), generator=generator, device=dev)
         lat = torch.as_tensor(latents, device=dev).float() * self.m.scheduler.init_noise_sigma
 
+        prop = set(propagation_steps) if flows_bi is not None else set()  # ref :556-561
+        if prop:
+            flows_f, flows_b = (torch.as_tensor(f, device=dev).float() for f in flows_bi)
+        propagated = []
         sched = self.m.scheduler
-        for tstep in sched.timesteps(num_inference_steps):
+        for i, tstep in enumerate(sched.timesteps(num_inference_steps)):
             tstep = int(tstep)
             pred = self.unet_on_windows(lat, image_noised, tstep, prompt_embeds, level, do_cfg)
             if do_cfg:
                 uncond, cond = pred.chunk(2, dim=0)
                 pred = uncond + guidance_scale * (cond - uncond)
             x0 = sched.step_v0(pred, tstep, lat)
+            if i in prop:
+                x0 = propagate_latents(x0, flows_f, flows_b)
+                propagated.append(i)
             lat = sched.step_vt(x0, pred, tstep, lat, num_inference_steps)
+        self.propagated_steps = tuple(propagated)
         return self.decode_latents(lat, image_dec, w_lr)
+
+
+def build_module(cls, config, device: torch.device, dtype: torch.dtype,
+                 generator: torch.Generator, state_dict=None) -> torch.nn.Module:
+    """``cls(config)`` made on ``meta`` (nothing allocated) and placed on
+    ``device`` in float32, filled from ``state_dict`` with ``strict=True`` or,
+    without one, by PyTorch's initialisers drawn from ``generator`` on the
+    device; then cast to ``dtype``, in eval mode."""
+    with torch.device("meta"):
+        m = cls(config)
+    m = m.to_empty(device=device)
+    if state_dict is None:
+        init_random_(m, generator)
+    else:
+        m.load_state_dict(state_dict, strict=True)
+    return m.to(dtype).eval()
 
 
 def random_pipeline(device=None, seed: int = 0, unet_config: UNetVideoConfig = UNetVideoConfig(),
@@ -188,17 +223,10 @@ def random_pipeline(device=None, seed: int = 0, unet_config: UNetVideoConfig = U
     ``vae_config=VIDEO_VAE`` gives the README's video-VAE configuration."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-
-    def make(cls, cfg, dt):
-        with torch.device("meta"):
-            m = cls(cfg)
-        m = init_random_(m.to_empty(device=dev), gen)
-        return m.to(dt).eval()
-
     modules = PipelineModules(
-        unet=make(UNetVideoModel, unet_config, dtype),
-        vae=make(AutoencoderKLVideo, vae_config, decode_dtype),
-        text_encoder=make(CLIPTextModel, clip_config, dtype),
+        unet=build_module(UNetVideoModel, unet_config, dev, dtype, gen),
+        vae=build_module(AutoencoderKLVideo, vae_config, dev, decode_dtype, gen),
+        text_encoder=build_module(CLIPTextModel, clip_config, dev, dtype, gen),
         tokenizer=FixedTokenizer(),
         scheduler=DDIMScheduler(DDIMSchedulerConfig(beta_schedule="scaled_linear")),
         low_res_scheduler=DDPMScheduler())

@@ -11,6 +11,8 @@ Rules (flax path → torch key): ``name_3`` → ``name.3`` unless the digit is p
 of the name (``conv1``, ``linear_1`` ...); ``base``/``params`` segments and the
 inner ``conv`` wrapper segment are dropped; ``kernel``/``scale``/``embedding``
 → ``weight``, with kernels transposed HWIO→OIHW, DHWIO→OIDHW, (I,O)→(O,I).
+:func:`raft_state_dict` gives a RAFT tree ``raft-things.pth``'s key names
+(the inverse of ``upscale_a_video_tpu/models/raft.py:470``).
 """
 
 from __future__ import annotations
@@ -34,6 +36,14 @@ CLIP_RENAMES = {
     "layers.": "encoder.layers.",
     "token_embedding": "embeddings.token_embedding",
     "position_embedding.weight": "embeddings.position_embedding.weight",
+}
+
+# the inverse of the JAX package's RAFT_RENAMES: FrozenBatchNorm's four
+# parameters are the torch BatchNorm's weight, bias and running statistics
+RAFT_RENAMES = {
+    ".bn.mean": ".running_mean", ".bn.var": ".running_var",
+    ".bn.weight": ".weight", ".bn.bias": ".bias", ".gn.": ".",
+    "conv_.weight": "conv.weight", "conv_.bias": "conv.bias",
 }
 
 
@@ -101,6 +111,25 @@ def to_state_dict(flat: Mapping[Tuple[str, ...], np.ndarray],
             raise KeyError(f"two parameters map to {key!r}")
         out[key] = torch.from_numpy(np.ascontiguousarray(v)).to(dtype)
     return out
+
+
+def raft_state_dict(flat: Mapping[Tuple[str, ...], np.ndarray]) -> Dict[str, torch.Tensor]:
+    """A JAX RAFT parameter tree (``{path: array}``) → a state dict with
+    ``raft-things.pth``'s keys: each BatchNorm gains ``num_batches_tracked``,
+    and a block's downsampling norm (``norm3`` of a ResidualBlock, ``norm4``
+    of a BottleneckBlock) appears a second time as ``downsample.1``, where
+    the reference registers the same module."""
+    sd = to_state_dict(flat, RAFT_RENAMES)
+    for key in [k for k in sd if k.endswith(".running_mean")]:
+        sd[key[:-len("running_mean")] + "num_batches_tracked"] = torch.tensor(0)
+    for key in list(sd):
+        m = re.fullmatch(r"(.*)\.norm([34])\.(\w+)", key)
+        if m is None or f"{m[1]}.downsample.0.weight" not in sd:
+            continue
+        last = "4" if any(k.startswith(f"{m[1]}.norm4.") for k in sd) else "3"
+        if m[2] == last:
+            sd[f"{m[1]}.downsample.1.{m[3]}"] = sd[key]
+    return sd
 
 
 @torch.no_grad()
