@@ -24,7 +24,7 @@ Phases (each announced on a flushed line with the seconds elapsed):
               a power of two, a bf16 bias; bf16 with C % 8 != 0, C past one
               pass of the block's threads). Each path below fails if it
               launched a kernel at a shape this phase did not check (the
-              wrappers count launches by shape, ``_cuda.SHAPES``); after both
+              wrappers count launches by shape, ``_cuda.SHAPES``); after the
               paths, each path's launches times these per-call times give
               its kernels' seconds against their plain versions'.
   4. path 1   the 3D-VAE configuration: one full-width UNet forward at the
@@ -47,7 +47,9 @@ Phases (each announced on a flushed line with the seconds elapsed):
               The same call with the colour fix on the plain versions (timed),
               the decode alone with the kernels against the plain decode
               (relative L2 gate), and a 2-step pair against the plain
-              versions.
+              versions; then the same 2 steps with ``enable_model_offload()``,
+              which must equal the resident call exactly (both peak
+              memories printed).
   6. path 3   the README's headline command with ``-p 24,26,28``: the
               pipeline from ``load_pipeline(random_init=True,
               use_video_vae=True)`` and RAFT from ``load_raft(None)`` at
@@ -64,6 +66,25 @@ Phases (each announced on a flushed line with the seconds elapsed):
               exactly 3 propagations and 480 fused temporal attentions; then
               the VAE encoder on 3 output frames with the kernels against the
               plain versions (relative L2 gate; flash in its mid block).
+  7. path 4   the port CLI's per-clip step (``cli.process_clip``) with the
+              headline command's flags plus ``--perform_tile --tile_size 128
+              --tile_batch 2`` and ``--random_weights``: the pipeline and
+              RAFT from ``cli.load_models`` (video VAE, bf16 decode), a
+              synthetic 14-frame 128x256 uint8 clip from a seed, in memory
+              (no codec library on the card machine): two 128x192 tiles in
+              one batched call, window_group 1 (windows 0 and 6),
+              propagation at 24, 26, 28, Wavelet fix -> (14, 512, 1024, 3)
+              uint8. Frames/s, the seconds and peak memory of RAFT, the
+              denoise, the decode, the colour fix and the rest (RAFT and the
+              fix timed around a sync, the denoise and decode by progress
+              ticks); exactly one tile call, which propagated at 24, 26, 28;
+              kernels 1-5 launched as many times as the path predicts, only
+              at checked shapes, kernel 6 never; 2 steps with ``--tile_batch
+              1`` against ``--tile_batch 2`` in fp32 (the UNet's plain
+              versions; flash in the decode at checked shapes), each tile
+              with the same noise, in float before the uint8 conversion,
+              within relative L2 1e-4; the native frame conversions equal
+              their plain versions exactly on the path's frames.
 
 It exits non-zero, printing no result, without a CUDA device. Any failure
 raises. The last line is the JSON result; the two lines before it are the
@@ -91,6 +112,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from upscale_a_video_tpu_torch import cli
 from upscale_a_video_tpu_torch.config import VIDEO_VAE
 from upscale_a_video_tpu_torch.models.propagation import fb_consistency_check, propagate_latents
 from upscale_a_video_tpu_torch.models.raft import RaftRunner, compute_bidirectional_flows, load_raft
@@ -112,6 +134,7 @@ from upscale_a_video_tpu_torch.ops.temporal_conv import temporal_conv, temporal_
 from upscale_a_video_tpu_torch.ops.warp import flow_warp
 from upscale_a_video_tpu_torch.pipeline import load_pipeline, random_pipeline
 from upscale_a_video_tpu_torch.pipeline.color import apply_color_fix
+from upscale_a_video_tpu_torch.utils import native_frameproc, video_io
 
 T0 = time.time()
 PEAK_FLOPS = 989e12   # H100 SXM dense bf16 (data sheet)
@@ -123,9 +146,14 @@ DECODE_TOL = 1e-2     # relative L2, fp32 decode whose one bf16 step is the mid-
 FLOW_TOL = 1e-2       # relative L2, RAFT's fp32 flows on the card against the CPU (20 iterations)
 PROP_TOL = 1e-5       # max |card - CPU|, fp32 propagation of the same x̂0 along the same flows
 ENCODE_TOL = 1e-2     # relative L2, fp32 encode whose one bf16 step is the mid-block attention
+TILE_TOL = 1e-4       # relative L2, 2 fp32 steps + fp32 decode: tiles batched 2 against 1 per call
 FRAMES, LR, STEPS = 14, 64, 30            # path 1: 64x64, 14 frames
 FRAMES2, H2, W2 = 5, 96, 160              # path 2 (and 3): 96x160, 5 frames
 PROP_STEPS = (24, 26, 28)                 # path 3: the headline command's -p 24,26,28
+FRAMES4, H4, W4 = 14, 128, 256            # path 4: two 128x192 tiles (64 px halo) -> 512x1024
+P4_ARGV = ["-n", "120", "-g", "6", "-s", str(STEPS), "-p", ",".join(map(str, PROP_STEPS)),
+           "--use_video_vae", "--color_fix", "Wavelet", "--no_llava", "--perform_tile",
+           "--tile_size", "128", "--tile_batch", "2", "--random_weights"]
 # temporal resblock sites (B, T, H, W, C, k): TemporalModule3D (k = 5, with
 # temb) and the Transformer3D entry resblock (k = 3, no temb) at C <= 512,
 # after the CFG duplication (path 1: 2 windows x 2 rows; path 2: 2 rows) or
@@ -136,15 +164,25 @@ RESBLOCK_P1 = ((4, 8, 64, 64, 256, 5), (4, 8, 64, 64, 512, 5), (2, 8, 32, 32, 25
 RESBLOCK_P2 = ((2, 5, 96, 160, 256, 5), (2, 5, 96, 160, 512, 5), (1, 5, 48, 80, 256, 5),
                (2, 5, 48, 80, 512, 5), (2, 5, 48, 80, 512, 3), (2, 5, 24, 40, 512, 5),
                (2, 5, 24, 40, 512, 3), (2, 5, 12, 20, 512, 5))
+# path 4: one 8-frame window of the two 128x192 tiles per UNet call (2 rows
+# before the CFG duplication, 4 after): path 1's sites at 2x3 the latent
+RESBLOCK_P4 = ((4, 8, 128, 192, 256, 5), (4, 8, 128, 192, 512, 5), (2, 8, 64, 96, 256, 5),
+               (4, 8, 64, 96, 512, 5), (4, 8, 64, 96, 512, 3), (4, 8, 32, 48, 512, 5),
+               (4, 8, 32, 48, 512, 3), (4, 8, 16, 24, 512, 5))
 # the temporal conv's shapes (B, T, H, W, Cin, Cout, k): every resblock conv
-# of both paths, conv1 with the site's k and conv2's k = 3 (the resblock's
-# conv is this conv)
+# of paths 1 and 2, conv1 with the site's k and conv2's k = 3 (the resblock's
+# conv is this conv; no path launches the conv alone)
 CONV_SITES = tuple(dict.fromkeys((*site[:5], site[4], k) for site in RESBLOCK_P1 + RESBLOCK_P2
                                  for k in (site[5], 3)))
 # feed-forward shapes (B*T, tokens, C): every transformer level of path 1
-# (B*T = 32) and of path 2 (B*T = 10)
+# (B*T = 32), of path 2 (B*T = 10) and of path 4 (B*T = 32)
 FF_SITES = ((32, 1024, 512), (32, 256, 512), (32, 64, 1024),
-            (10, 3840, 512), (10, 960, 512), (10, 240, 1024))
+            (10, 3840, 512), (10, 960, 512), (10, 240, 1024),
+            (32, 6144, 512), (32, 1536, 512), (32, 384, 1024))
+# the temporal attention block's and the cross-attention's (B*T, tokens, C)
+# at the UNet levels of paths 1 and 4
+TAB_SITES = ((32, 1024, 512), (32, 256, 512), (32, 64, 1024),
+             (32, 6144, 512), (32, 1536, 512), (32, 384, 1024))
 # shapes no path gives a kernel, one for each of its built variants: flash at
 # each head width (64, 128 and 256; 80 and 384 run padded to 128 and 512,
 # key counts not a multiple of any tile); the conv at T > 8, Cin = 1024 !=
@@ -330,9 +368,9 @@ def check_kernels(only=None):
     recs = []
     inp = Inputs(1)
     want = lambda name: only is None or name in only
-    # 1. temporal attention block: every UNet transformer level of path 1
-    for s, c in ((1024, 512), (256, 512), (64, 1024)) if want("temporal_attention_block") else ():
-        x = inp.normal(32, s, c)
+    # 1. temporal attention block: every UNet transformer level of paths 1 and 4
+    for bt, s, c in TAB_SITES if want("temporal_attention_block") else ():
+        x = inp.normal(bt, s, c)
         lw, lb = inp.norm(c)
         wq, wk, wv, wo = (inp.weight(c, c) for _ in range(4))
         bo = inp.normal(c, scale=0.1)
@@ -340,13 +378,13 @@ def check_kernels(only=None):
         args = (x, lw, lb, wq, wk, wv, wo, bo, bias)
         tokens = x.shape[0] * s
         recs.append(compare(
-            "temporal_attention_block", [32, s, c, 8],
+            "temporal_attention_block", [bt, s, c, 8],
             lambda: fused_temporal_attention_block(*args, video_length=8, add_residual=True),
             lambda: temporal_attention_block_plain(*args, 8, 32, 1e-5, True),
             nbytes(x, x, lw, lb, wq, wk, wv, wo, bo, bias),
             tokens * (8 * c * c + 4 * 8 * c)))
-    # 2. temporal resblock at every site of both paths
-    for (batch, t, hh, ww, c, k) in (RESBLOCK_P1 + RESBLOCK_P2
+    # 2. temporal resblock at every site of the paths
+    for (batch, t, hh, ww, c, k) in (RESBLOCK_P1 + RESBLOCK_P2 + RESBLOCK_P4
                                      if want("fused_temporal_resblock") else ()):
         x = inp.normal(batch, t, hh, ww, c)
         n1w, n1b = inp.norm(c)
@@ -363,10 +401,10 @@ def check_kernels(only=None):
             lambda: fused_temporal_resblock_plain(*args, 32, 1e-6),
             nbytes(x, x, w1, w2, b1, b2, n1w, n1b, n2w, n2b),
             2.0 * rows * c * c * (taps(k, t) + taps(3, t)), trace=True))
-    # 3. text cross-attention at the C = 512 levels: path 1 (context (4, 77,
-    # 1024), T = 8) and path 2 (context (2, 77, 1024), T = 5)
-    for b, t, s in (((4, 8, 1024), (4, 8, 256), (2, 5, 3840), (2, 5, 960))
-                    if want("cross_attention_block") else ()):
+    # 3. text cross-attention at the C = 512 levels: paths 1 and 4 (context
+    # (4, 77, 1024), T = 8) and path 2 (context (2, 77, 1024), T = 5)
+    for b, t, s in (((4, 8, 1024), (4, 8, 256), (2, 5, 3840), (2, 5, 960), (4, 8, 6144),
+                     (4, 8, 1536)) if want("cross_attention_block") else ()):
         ctx = inp.normal(b, 77, 1024)
         wk_, wv_ = inp.weight(512, 1024), inp.weight(512, 1024)
         k_, v_ = F.linear(ctx, wk_), F.linear(ctx, wv_)
@@ -401,17 +439,24 @@ def check_kernels(only=None):
             lambda: fused_feedforward_plain(*args, 1e-5, True),
             nbytes(x, x, lw, lb, w1, b1, w2, b2), float(bt) * s * 24 * c * c))
     # 5. flash attention: the VAE mid block (d = 512) in 3- and 2-frame decode
-    # chunks, at path 1's 64x64 and path 2's 96x160 latent, the flagship's
-    # C = 1024 UNet self-attention (40x40 latent), and the other widths
+    # chunks, at path 1's 64x64 and path 2's 96x160 latent, and path 4's
+    # 128x192 tiles two at a time (bf16 decode) and one at a time (the fp32
+    # tile-batching pair); the flagship's C = 1024 UNet self-attention (40x40
+    # latent), and the other widths
     for bsz, h, s, d in (((3, 1, 4096, 512), (2, 1, 4096, 512), (3, 1, 15360, 512),
-                          (2, 1, 15360, 512), (1, 8, 1600, 128)) + FLASH_WIDTHS
+                          (2, 1, 15360, 512), (6, 1, 24576, 512), (4, 1, 24576, 512),
+                          (3, 1, 24576, 512), (2, 1, 24576, 512),
+                          (1, 8, 1600, 128)) + FLASH_WIDTHS
                          if want("flash_attention") else ()):
         q, k, v = (inp.normal(bsz, h, s, d) for _ in range(3))
         scale = d ** -0.5
+        # the plain version's fp32 scores, one batch entry at a time past 4 GiB
+        per = 1 if bsz * h * s * s * 4 > 4 * 2**30 else bsz
         recs.append(compare(
             "flash_attention", [bsz, h, s, s, d],
             lambda: flash_attention(q, k, v, scale),
-            lambda: attention_plain(q, k, v, scale),
+            lambda: torch.cat([attention_plain(q[i:i + per], k[i:i + per], v[i:i + per], scale)
+                               for i in range(0, bsz, per)]),
             nbytes(q, k, v, q), 4.0 * bsz * h * s * s * d,
             library=lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)))
     # 6. fused temporal attention: path 2's UNet levels 1-3 (T = 5, CFG rows
@@ -708,14 +753,36 @@ def run_path2(pipe, card: str, checked):
     # a 2-step pair against the plain versions (reported, not gated)
     with _cuda.plain_path():
         ref2 = run(2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     out2 = run(2)
+    peak2 = torch.cuda.max_memory_allocated()
     log(f"path 2, 2 steps: |kernels - plain| max {(out2 - ref2).abs().max().item():.4f} mean "
         f"{(out2 - ref2).abs().mean().item():.5f}")
+
+    # the same 2 steps with the UNet and VAE weights offloaded to the host
+    # between their stages: the same output, bit for bit
+    pipe.enable_model_offload()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    off2 = run(2)
+    torch.cuda.synchronize()
+    off_secs = time.time() - t0
+    off_peak = torch.cuda.max_memory_allocated()
+    pipe.enable_model_offload(False)
+    log(f"path 2, 2 steps with enable_model_offload(): {off_secs:.2f} s, peak "
+        f"{off_peak / 2**30:.2f} GiB against {peak2 / 2**30:.2f} GiB resident; equal to the "
+        f"resident call: {torch.equal(off2, out2)}")
+    if not torch.equal(off2, out2):
+        raise AssertionError(f"the offloaded call differs from the resident one: max |diff| "
+                             f"{(off2 - out2).abs().max().item():.3e}")
     return dict(launches=launches, launches_by_shape=shapes, seconds=secs,
                 pipeline_seconds=pipe_secs, plain_seconds=plain_secs,
                 decode_seconds=decode_secs, decode_rel_l2=dec_rel,
                 frames=FRAMES2, frames_per_s=fps,
-                peak_gib=peak / 2**30)
+                peak_gib=peak / 2**30, two_step_peak_gib=peak2 / 2**30,
+                offload_two_step_peak_gib=off_peak / 2**30, offload_two_step_seconds=off_secs)
 
 
 def rel_l2(a, b) -> float:
@@ -860,6 +927,213 @@ def run_path3(card: str, checked):
                 encode_launches=enc_launches)
 
 
+class CallRecorder:
+    """The pipeline as the CLI sees it, recording each call's batch and the
+    steps it propagated at. With ``tile_noise`` set to a seed, every tile
+    gets noise of its own (the ``latents``/``lr_noise`` seams, drawn from
+    the seed plus the tile's index in the run), whatever the calls' batches:
+    with one generator per call, as the JAX CLI's one key, the noise of a
+    tile depends on the batch it is drawn in."""
+
+    def __init__(self, pipe):
+        object.__setattr__(self, "pipe", pipe)
+        object.__setattr__(self, "calls", [])
+        object.__setattr__(self, "tile_noise", None)
+        object.__setattr__(self, "tiles", 0)
+
+    def __call__(self, prompt, image, *args, **kwargs):
+        if self.tile_noise is not None:
+            b, t, h, w, _ = image.shape
+            draws = []
+            for j in range(b):
+                seed = self.tile_noise + self.tiles + j
+                g = torch.Generator(device=image.device).manual_seed(seed)
+                draws.append((torch.randn((1, t, h, w, 4), generator=g, device=image.device),
+                              torch.randn((1, t, h, w, 3), generator=g, device=image.device)))
+            object.__setattr__(self, "tiles", self.tiles + b)
+            kwargs["latents"] = torch.cat([d[0] for d in draws])
+            kwargs["lr_noise"] = torch.cat([d[1] for d in draws])
+        out = self.pipe(prompt, image, *args, **kwargs)
+        self.calls.append((image.shape[0], self.pipe.propagated_steps))
+        return out
+
+    def __getattr__(self, name):
+        return getattr(self.pipe, name)
+
+    def __setattr__(self, name, value):
+        setattr(self.pipe, name, value)
+
+
+def synthetic_clip(seed: int, t: int, h: int, w: int) -> np.ndarray:
+    """(t, h, w, 3) uint8: a field of random 8x8 blocks panning by (1, 2) px
+    a frame, so that RAFT sees consistent motion."""
+    rng = np.random.default_rng(seed)
+    field = rng.integers(0, 256, ((h + t) // 8 + 1, (w + 2 * t) // 8 + 1, 3), dtype=np.uint8)
+    field = np.repeat(np.repeat(field, 8, axis=0), 8, axis=1)
+    return np.ascontiguousarray(np.stack([field[i:i + h, 2 * i:2 * i + w] for i in range(t)]))
+
+
+# path 4's launches: 2 UNet calls a step (windows 0 and 6, window_group 1)
+# of path 1's per-forward counts (16, 16, 20, 16; 4 rows at T = 8), and the
+# decode's 5 chunks (4 of 3 frames, 1 of 2) of the two tiles; the fp32 pair's:
+# flash alone (the UNet's kernels take bf16), 5 chunks of each of 3 calls
+P4_FORWARDS = 2 * STEPS
+P4_LAUNCHES = {"temporal_attention_block": 16 * P4_FORWARDS,
+               "fused_temporal_resblock": 16 * P4_FORWARDS,
+               "cross_attention_block": 20 * P4_FORWARDS,
+               "fused_feedforward": 16 * P4_FORWARDS, "flash_attention": 5}
+P4_FP32_LAUNCHES = {"flash_attention": 15}
+
+
+class StageClock:
+    """Seconds and peak device memory of each stage of one run, a stage
+    ending where :meth:`end` is called after a sync: RAFT and the colour
+    fix through :meth:`timed` wrappers, the denoise and the decode at the
+    pipeline's progress ticks; what lies between them is "rest"."""
+
+    def __init__(self):
+        self.mark = time.time()
+        self.seconds, self.peak = {}, {}
+
+    def end(self, stage):
+        now = time.time()
+        self.seconds[stage] = self.seconds.get(stage, 0.0) + now - self.mark
+        self.peak[stage] = max(self.peak.get(stage, 0), torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+        self.mark = now
+
+    def tick(self, stage, done, total):
+        self.end(stage)
+
+    def timed(self, fn, stage):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            self.end("rest")
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.end(stage)
+            return out
+        return run
+
+
+@contextlib.contextmanager
+def patched(module, **attrs):
+    old = {k: getattr(module, k) for k in attrs}
+    for k, v in attrs.items():
+        setattr(module, k, v)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            setattr(module, k, v)
+
+
+def run_path4(card: str, checked):
+    """The port CLI's per-clip step on the card: the headline command with
+    two batched 128x192 tiles, in memory."""
+    args = cli.build_parser().parse_args(P4_ARGV)
+    cli.check_args(args)
+    t0 = time.time()
+    pipe, raft = cli.load_models(args, torch.device("cuda"))
+    torch.cuda.synchronize()
+    log(f"built the pipeline and RAFT the CLI's way (cli.load_models: video VAE, "
+        f"{pipe.m.vae.post_quant_conv.weight.dtype} decode) in {time.time() - t0:.1f} s")
+    t0 = time.time()
+    native_frameproc.lib()  # its build at first use is set-up, as the kernels' is
+    log(f"built the frame conversions (csrc/frameproc.cpp) in {time.time() - t0:.1f} s")
+    frames_u8 = synthetic_clip(6, FRAMES4, H4, W4)
+    recorder = CallRecorder(pipe)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launch_counts()
+    clock = StageClock()
+    t0 = clock.mark
+    with patched(cli, compute_bidirectional_flows=clock.timed(cli.compute_bidirectional_flows,
+                                                              "raft"),
+                 apply_color_fix=clock.timed(cli.apply_color_fix, "color_fix")):
+        out = cli.process_clip(recorder, raft, frames_u8, args, progress_cb=clock.tick)
+    clock.end("rest")
+    secs = clock.mark - t0
+    launches, shapes = dict(_cuda.LAUNCHES), launch_shapes()
+    stages, stage_peak = clock.seconds, {k: v / 2**30 for k, v in clock.peak.items()}
+    peak = max(clock.peak.values())
+    fps = FRAMES4 / secs
+    log(f"path 4 e2e (cli.process_clip): {FRAMES4} frames {H4}x{W4} uint8 -> {out.shape} "
+        f"{out.dtype} in {secs:.2f} s: {fps:.4f} frames/s on {card}; stages (s): "
+        f"{json.dumps({k: round(v, 3) for k, v in stages.items()})} (rest: frame "
+        f"conversions, host copy, paste)")
+    log(f"max_memory_allocated={peak / 2**30:.2f} GiB; by stage (GiB): "
+        f"{json.dumps({k: round(v, 2) for k, v in stage_peak.items()})}")
+    log(f"tile calls (batch, propagated steps): {recorder.calls}")
+    if out.shape != (FRAMES4, 4 * H4, 4 * W4, 3) or out.dtype != np.uint8:
+        raise AssertionError(f"path 4 output {out.shape} {out.dtype}, expected "
+                             f"{(FRAMES4, 4 * H4, 4 * W4, 3)} uint8")
+    if recorder.calls != [(2, PROP_STEPS)]:
+        raise AssertionError(f"path 4 must make one call of both tiles that propagates at "
+                             f"{PROP_STEPS}: {recorder.calls}")
+    check_launches("path 4", launches, shapes, PATH1_KERNELS, checked)
+    unexpected = {k: (v, P4_LAUNCHES.get(k, 0)) for k, v in launches.items()
+                  if v != P4_LAUNCHES.get(k, 0)}
+    if unexpected:
+        raise AssertionError(f"path 4 launches (got, predicted): {unexpected}")
+    calls = recorder.calls
+    del pipe, recorder
+    torch.cuda.empty_cache()
+
+    # 2 steps, both tiles in one call against one tile per call, each tile
+    # with the same noise in both, in float before the uint8 conversion, in
+    # fp32: the batching is exact, so the two agree to float32 rounding (in
+    # bf16 any other summation order, batching or the plain versions, moves
+    # this output by ~2.5e-2: CFG 6 amplifies a bf16 rounding ~11x)
+    frames = video_io.to_model_range(frames_u8)
+
+    def two_steps(p, tile_batch):
+        rec = CallRecorder(p)
+        object.__setattr__(rec, "tile_noise", 7)
+        a = cli.build_parser().parse_args(P4_ARGV + ["-s", "2", "--tile_batch", str(tile_batch)])
+        out = cli.upscale_clip(rec, raft, frames, a)
+        if [batch for batch, _ in rec.calls] != [tile_batch] * (2 // tile_batch):
+            raise AssertionError(f"--tile_batch {tile_batch}: calls {rec.calls}")
+        return out
+
+    pipe32 = load_pipeline(random_init=True, use_video_vae=True, dtype=torch.float32,
+                           device="cuda")
+    _cuda.reset_launch_counts()
+    fp32 = {tb: two_steps(pipe32, tb) for tb in (1, 2)}
+    launches32, shapes32 = dict(_cuda.LAUNCHES), launch_shapes()
+    del pipe32
+    check_launches("path 4's fp32 tile pair", launches32, shapes32, (), checked)
+    wrong = {k: (v, P4_FP32_LAUNCHES.get(k, 0)) for k, v in launches32.items()
+             if v != P4_FP32_LAUNCHES.get(k, 0)}
+    if wrong:
+        raise AssertionError(f"path 4's fp32 pair launches (got, predicted): {wrong}")
+    tile_rel32 = rel_l2(fp32[2], fp32[1])
+    log(f"2 steps (fp32), --tile_batch 2 against 1: rel L2 {tile_rel32:.3e} "
+        f"(tol {TILE_TOL}), max |diff| {(fp32[2] - fp32[1]).abs().max().item():.3e}")
+    if not (torch.isfinite(fp32[2]).all() and tile_rel32 <= TILE_TOL):
+        raise AssertionError(f"batched tiles disagree with one tile per call: {tile_rel32:.3e}")
+
+    # the native frame conversions against their plain versions, bit for bit,
+    # on the clip, its model-range frames and the 2-step output
+    out2 = fp32[2].cpu().numpy()
+    conv = {"normalize_u8": (native_frameproc.normalize_u8(frames_u8),
+                             native_frameproc.normalize_u8_plain(frames_u8)),
+            "denormalize_f32": (native_frameproc.denormalize_f32(out2),
+                                native_frameproc.denormalize_f32_plain(out2)),
+            "area_downsample4": (native_frameproc.area_downsample4(frames),
+                                 native_frameproc.area_downsample4_plain(frames))}
+    equal = {k: bool(np.array_equal(a, b)) for k, (a, b) in conv.items()}
+    log(f"native frameproc equal to its plain versions: {json.dumps(equal)}")
+    if not all(equal.values()):
+        raise AssertionError(f"native frame conversions differ from their plain versions: {equal}")
+    return dict(launches=launches, launches_by_shape=shapes, seconds=secs, stage_seconds=stages,
+                stage_peak_gib=stage_peak, frames=FRAMES4, frames_per_s=fps,
+                peak_gib=peak / 2**30, tile_calls=[list(c) for c in calls],
+                tile_batch_fp32_rel_l2=tile_rel32, tile_batch_fp32_launches=launches32,
+                frameproc_equal=equal)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -930,7 +1204,11 @@ def main() -> int:
     path3 = run_path3(card, checked)
     torch.cuda.empty_cache()
 
-    paths = {"path1": path1, "path2": path2, "path3": path3}
+    phase("path 4: the CLI's per-clip step, two 128x192 tiles batched, -p 24,26,28")
+    path4 = run_path4(card, checked)
+    torch.cuda.empty_cache()
+
+    paths = {"path1": path1, "path2": path2, "path3": path3, "path4": path4}
     by_key = {(r["name"], json.dumps(r["shape"])): r for r in recs}
     for name, p in paths.items():  # fault C1 in one run: the kernels against the plain route
         per_kernel = p["kernel_seconds"] = kernel_seconds(p["launches_by_shape"], by_key)

@@ -459,13 +459,14 @@ def test_feedforward_gate():
 
 
 def test_resblock_gate():
-    """Every resblock site of both paths, and shapes the WMMA conv refused
+    """Every resblock site of the paths, and shapes the WMMA conv refused
     (T = 12, 300- and 15-pixel frames, C = 320); not fp32, not C off the
     64-channel slices or the group counts, not C > 512 (the card check holds
     no wider site)."""
     import chip_smoke
 
-    for (b, t, h, w, c, _) in chip_smoke.RESBLOCK_P1 + chip_smoke.RESBLOCK_P2:
+    sites = chip_smoke.RESBLOCK_P1 + chip_smoke.RESBLOCK_P2 + chip_smoke.RESBLOCK_P4
+    for (b, t, h, w, c, _) in sites:
         assert t_res.fused_resblock_fits(torch.empty(b, t, h, w, c, **BF), 32, 32)
     for shape in ((1, 12, 15, 20, 320), (2, 3, 3, 5, 64), (1, 1, 1, 1, 512), (2, 16, 8, 8, 256)):
         assert t_res.fused_resblock_fits(torch.empty(shape, **BF), 32), shape
@@ -549,12 +550,13 @@ def test_gn_finalize_plain_matches_jax_affine_from_partials(hw, rows):
 
 def test_resblock_partial_counts():
     """The wrapper's tile height and partial-row count at every resblock
-    site of both paths (and ragged frames) against a direct count: the
+    site of the paths (and ragged frames) against a direct count: the
     tiles the kernel's grid walks, and the distinct (frame, tile) pairs of
     the frame's rows."""
     import chip_smoke
 
-    sites = [s[:5] for s in chip_smoke.RESBLOCK_P1 + chip_smoke.RESBLOCK_P2]
+    sites = [s[:5] for s in
+             chip_smoke.RESBLOCK_P1 + chip_smoke.RESBLOCK_P2 + chip_smoke.RESBLOCK_P4]
     sites += [(1, 12, 15, 20, 320), (2, 3, 3, 5, 64)]
     for sms in (132, 114):
         for (b, t, h, w, c) in sites:
@@ -702,13 +704,15 @@ def test_stacked_qkv_weight_follows_updates_and_loads():
 
 
 def test_attention_block_gates_at_the_path_sites():
-    """Kernel 1 admits the three path-1 sites (T = 8) and refuses path 2's
+    """Kernel 1 admits the path-1 and path-4 sites (T = 8) and refuses path 2's
     T = 5 (the JAX gate's ROWS % t, so path 2 keeps the fused temporal
-    attention) and heads it is not built for (64 and 128 channels); kernel 3 admits the four
+    attention) and heads it is not built for (64 and 128 channels); kernel 3 admits the
     path sites and any token count, and refuses C = 1024 (as the JAX gate),
     more than 128 keys and fp32."""
-    for s, c in ((1024, 512), (256, 512), (64, 1024)):
-        assert t_tab.temporal_attention_block_fits(torch.empty(32, s, c, **BF), 8, 8)
+    import chip_smoke
+
+    for bt, s, c in chip_smoke.TAB_SITES:
+        assert t_tab.temporal_attention_block_fits(torch.empty(bt, s, c, **BF), 8, 8)
     for s, c in ((3840, 512), (960, 512), (240, 1024)):
         assert not t_tab.temporal_attention_block_fits(torch.empty(10, s, c, **BF), 5, 8)
     x = torch.empty(32, 100, 512, **BF)
@@ -718,7 +722,7 @@ def test_attention_block_gates_at_the_path_sites():
     assert not t_tab.temporal_attention_block_fits(x, 8, 16)   # heads of 32
     assert not t_tab.temporal_attention_block_fits(torch.empty(32, 100, 576, **BF), 8, 3)
     assert not t_tab.temporal_attention_block_fits(torch.empty(32, 100, 512), 8, 8)
-    for bt, s in ((32, 1024), (32, 256), (10, 3840), (10, 960), (6, 100)):
+    for bt, s in ((32, 1024), (32, 256), (10, 3840), (10, 960), (32, 6144), (32, 1536), (6, 100)):
         assert t_cab.cross_attention_block_fits(torch.empty(bt, s, 512, **BF), 77, 8, 64)
     assert not t_cab.cross_attention_block_fits(torch.empty(32, 64, 1024, **BF), 77, 8, 128)
     assert not t_cab.cross_attention_block_fits(torch.empty(32, 64, 512, **BF), 129, 8, 64)

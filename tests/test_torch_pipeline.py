@@ -4,7 +4,8 @@ weights, a 14-frame clip (window starts 0, 6, 6: the blend and the duplicate
 window both run), CFG 6, noise level 120, 3 DDIM steps, identical initial
 latents and LR noise through the ``latents``/``lr_noise`` seams, float32 on
 both sides. Tolerance: float32 rounding carried through 3 steps × 2 windows of
-the UNet and the decode.
+the UNet and the decode. Both take their arguments in the same order: the
+flows third (fault C2), passed positionally to both.
 """
 
 import jax
@@ -99,11 +100,11 @@ def both():
         unet=unet, vae=vae, text_encoder=clip, tokenizer=FixedTokenizer(),
         scheduler=DDIMScheduler(DDIMSchedulerConfig(**sched_cfg)),
         low_res_scheduler=DDPMScheduler()), device="cpu")
-    return tpipe, (image, latents, lr_noise), want
+    return tpipe, (image, latents, lr_noise), want, jpipe
 
 
 def test_pipeline_matches_jax_end_to_end(both):
-    tpipe, (image, latents, lr_noise), want = both
+    tpipe, (image, latents, lr_noise), want, _ = both
     got = tpipe("a clip", torch.from_numpy(image), num_inference_steps=STEPS,
                 guidance_scale=6.0, noise_level=120, latents=torch.from_numpy(latents),
                 lr_noise=torch.from_numpy(lr_noise))
@@ -113,7 +114,7 @@ def test_pipeline_matches_jax_end_to_end(both):
 
 
 def test_pipeline_without_cfg_is_deterministic_per_seed(both):
-    tpipe, (image, _, _), _ = both
+    tpipe, (image, _, _), _, _ = both
     run = lambda seed: tpipe("a clip", torch.from_numpy(image[:, :6]), num_inference_steps=2,
                              guidance_scale=1.0,
                              generator=torch.Generator().manual_seed(seed))
@@ -130,6 +131,36 @@ def test_pipeline_input_checks(both):
         tpipe("x", torch.zeros(1, 2, 3, 8, 8))
     with pytest.raises(ValueError, match="batch mismatch"):
         tpipe(["x", "y"], torch.zeros(1, 2, 8, 8, 3))
+
+
+def test_flows_are_the_third_argument_as_in_jax(both):
+    """``pipe(prompt, image, flows_bi, steps, guidance, noise_level,
+    negative_prompt, propagation_steps)`` positionally, on both pipelines:
+    the same output, propagated at step 1 along a consistent flow pair
+    (backward = -forward, so that the warp and the fusion act)."""
+    tpipe, (image, latents, lr_noise), no_flows, jpipe = both
+    flow = np.random.default_rng(7).uniform(-1.5, 1.5, (B, FRAMES - 1, H, W, 2)).astype(np.float32)
+    want = np.asarray(jpipe("a clip", jnp.asarray(image), (jnp.asarray(flow), jnp.asarray(-flow)),
+                            STEPS, 6.0, 120, None, (1,), latents=jnp.asarray(latents),
+                            lr_noise=jnp.asarray(lr_noise)))
+    flows = (torch.from_numpy(flow), torch.from_numpy(-flow))
+    got = tpipe("a clip", torch.from_numpy(image), flows, STEPS, 6.0, 120, None, (1,),
+                latents=torch.from_numpy(latents),
+                lr_noise=torch.from_numpy(lr_noise))
+    assert tpipe.propagated_steps == (1,)
+    assert np.abs(want - no_flows).max() > 1e-2  # the propagation changed the output
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-3)
+
+
+def test_pipeline_input_checks_match_jax(both):
+    """The checks JAX's ``check_inputs`` has beyond the shape ones: a
+    ``negative_prompt`` that is no str or list, and no image."""
+    tpipe, _, _, jpipe = both
+    for pipe, image in ((tpipe, torch.zeros(1, 2, 8, 8, 3)), (jpipe, jnp.zeros((1, 2, 8, 8, 3)))):
+        with pytest.raises(ValueError, match="`negative_prompt` must be str or list"):
+            pipe("x", image, negative_prompt=3)
+        with pytest.raises(ValueError, match="`image` input cannot be undefined"):
+            pipe("x", None)
 
 
 def test_random_pipeline_on_cpu_at_tiny_width():

@@ -244,7 +244,10 @@ class Transformer3DModel(nn.Module):
 class SpatialAttentionBlock(nn.Module):
     """Per-frame single-head self-attention of the VAE mid block (vendored
     diffusers AttentionBlock). On an fp32 decode q/k/v go to the attention
-    as bf16 with an fp32 softmax, as the reference does (``:699-703``)."""
+    as bf16 with an fp32 softmax, as the reference does (``:699-703``);
+    ``fp32_operands = True`` keeps them fp32 (the CLI's ``--decode_attn
+    fp32``, JAX ``UAV_VAE_ATTN_F32``), which only the plain attention
+    takes: on the card that raises, since the flash kernel is bf16 only."""
 
     def __init__(self, channels: int, num_head_channels: Optional[int] = None,
                  norm_num_groups: int = 32, eps: float = 1e-6):
@@ -256,14 +259,19 @@ class SpatialAttentionBlock(nn.Module):
         self.key = nn.Linear(channels, channels)
         self.value = nn.Linear(channels, channels)
         self.proj_attn = nn.Linear(channels, channels)
+        self.fp32_operands = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, t, hh, ww, c = x.shape
         tokens = self.group_norm(x.reshape(b * t, hh, ww, c)).reshape(b * t, hh * ww, c)
         q, k, v = (_split_heads(f(tokens), self.heads) for f in (self.query, self.key, self.value))
         dt = q.dtype
-        if dt == torch.float32:
+        if dt == torch.float32 and not self.fp32_operands:
             q, k, v = q.to(torch.bfloat16), k.to(torch.bfloat16), v.to(torch.bfloat16)
+        elif dt == torch.float32 and x.is_cuda:
+            raise NotImplementedError(
+                "fp32 q/k/v in the VAE attention (--decode_attn fp32) need an fp32-operand "
+                "variant of the flash kernel, ROADMAP B7, which is not written yet")
         out = attention(q, k, v, 1.0 / float(np.sqrt(c / self.heads)))
         out = self.proj_attn(_merge_heads(out).to(dt))
         return out.reshape(b, t, hh, ww, c) + x

@@ -216,6 +216,13 @@ def cached(t: torch.Tensor, key: str, make: Callable[[torch.Tensor], torch.Tenso
     return t if hit[1] is None else hit[1]
 
 
+def drop_cached(module: torch.nn.Module) -> None:
+    """Forget the operands :func:`cached` made from ``module``'s tensors, so
+    that a module moved off the card leaves none of them there."""
+    for t in (*module.parameters(), *module.buffers()):
+        t.__dict__.pop("_uav_cached", None)
+
+
 def weight(t: torch.Tensor, dtype: torch.dtype, name: str) -> torch.Tensor:
     """A weight as a kernel operand (:func:`operand`), converted once per
     version of the weight (:func:`cached`)."""

@@ -1,19 +1,21 @@
 """VideoUpscalePipeline: CLIP prompt encoding → LR noising → windowed CFG
-DDIM denoise with the split step → chunked fp32 VAE decode (conditioned on
-the fp32 LR frames with weight ``w_lr`` when the VAE is the video VAE).
+DDIM denoise with the split step → chunked VAE decode (conditioned on the
+fp32 LR frames with weight ``w_lr`` when the VAE is the video VAE).
 
 Mirror of ``upscale_a_video_tpu/pipeline/pipeline.py`` (``__call__`` at
-``:497-597``) without its TPU execution machinery: the steps are a Python
-loop, each step runs the UNet once on all unique 8-frame windows (CFG rows
-share the text-free prefix, ``cfg_dup``), blends them with the window matrix
-and takes ``step_v0``, then, at the step indices in ``propagation_steps``
-when bidirectional flows are given, propagates x̂0 along them (``-p``, ref
-``:330-339``), then takes ``step_vt``. The ``latents`` and ``lr_noise``
+``:497-597``, same argument order) without its TPU execution machinery: the
+steps are a Python loop (the JAX ``step_mode="host"``), each step runs the
+UNet on the unique 8-frame windows, all in one call or ``window_group`` at a
+time (CFG rows share the text-free prefix, ``cfg_dup``), blends them with
+the window matrix and takes ``step_v0``, then, at the step indices in
+``propagation_steps`` when bidirectional flows are given, propagates x̂0
+along them (``-p``, ref ``:330-339``), then takes ``step_vt``. The ``latents`` and ``lr_noise``
 arguments let a caller hand both frameworks identical noise.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Optional, Sequence, Tuple
 
@@ -24,6 +26,7 @@ from ..config import UNetVideoConfig, VaeConfig, resolve_device
 from ..models import AutoencoderKLVideo, CLIPTextConfig, CLIPTextModel, UNetVideoModel
 from ..models.propagation import propagate_latents
 from ..models.raft import RaftRunner
+from ..ops import _cuda
 from ..sampling import DDIMScheduler, DDIMSchedulerConfig, DDPMScheduler
 from ..weights import init_random_
 from .windows import chunk_starts, unique_window_plan
@@ -62,11 +65,50 @@ class VideoUpscalePipeline:
     def __init__(self, modules: PipelineModules, device=None):
         self.m = modules
         self.device = resolve_device(device)
+        # 0 runs every unique window in one UNet call; G > 0 runs them G at a
+        # time when G divides their count and is smaller (else in one call,
+        # as the JAX pipeline decides). The CLI sets 1 for clips over 8 frames.
+        self.window_group = 0
+        self._offload = False
         self.propagated_steps: Tuple[int, ...] = ()  # step indices of the last call
 
     @property
     def dtype(self) -> torch.dtype:
         return self.m.unet.conv_in.weight.dtype
+
+    # ---------------------------------------------------------- offload
+    def enable_model_offload(self, enabled: bool = True) -> None:
+        """Keep the UNet and VAE weights in host memory and move each to the
+        device only for its own stage (denoise, decode), which it leaves
+        afterwards (JAX ``:152-171``); the text encoder stays on the device.
+        ``enabled=False`` brings both back to stay."""
+        self._offload = enabled
+        for module in (self.m.unet, self.m.vae):
+            self._move(module, torch.device("cpu") if enabled else self.device)
+
+    @staticmethod
+    def _move(module: torch.nn.Module, device: torch.device) -> None:
+        _cuda.drop_cached(module)  # kernel operands made from the weights stay behind otherwise
+        module.to(device)
+
+    @contextlib.contextmanager
+    def _stage(self, module: torch.nn.Module):
+        if not self._offload:
+            yield
+            return
+        self._move(module, self.device)
+        try:
+            yield
+        finally:
+            self._move(module, torch.device("cpu"))
+
+    def _tick(self, progress_cb, stage: str, done: int, total: int) -> None:
+        """``progress_cb(stage, done, total)``, if given, once the card has
+        finished the work it reports (no sync without a callback)."""
+        if progress_cb is not None:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            progress_cb(stage, done, total)
 
     # ------------------------------------------------------------- text
     @torch.no_grad()
@@ -85,33 +127,38 @@ class VideoUpscalePipeline:
     def unet_on_windows(self, lat, image_noised, tstep, prompt_embeds, level, do_cfg):
         """lat/image_noised: (B, T, h, w, C) → blended noise prediction
         (2B if do_cfg else B, T, h, w, 4), fp32."""
-        b, t, h, w, _ = lat.shape
+        bc, t, h, w, _ = lat.shape
+        rows = 2 * bc if do_cfg else bc
         ustarts, blend = unique_window_plan(t, self.WINDOW, self.STRIDE)
         win = min(self.WINDOW, t)
         n = len(ustarts)
+        group = self.window_group if self.window_group > 0 else n
+        if not (n % group == 0 and n > group):
+            group = n
         idx = torch.as_tensor(np.asarray(ustarts)[:, None] + np.arange(win)[None, :],
                               device=lat.device)
-        gather = lambda v: v[:, idx].transpose(0, 1).reshape(n * b, win, h, w, v.shape[-1])
-        lw = gather(lat.to(self.dtype))
-        iw = gather(image_noised)
-        if do_cfg:
+        if do_cfg:  # [uncond x (group·bc), cond x (group·bc)], cfg_dup's duplication order
             u, c = prompt_embeds.chunk(2, dim=0)
-            emb = torch.cat([u.repeat(n, 1, 1), c.repeat(n, 1, 1)])
+            emb = torch.cat([u.repeat(group, 1, 1), c.repeat(group, 1, 1)])
         else:
-            emb = prompt_embeds.repeat(n, 1, 1)
-        lvl = level.repeat(n)
-        out = self.m.unet(lw, tstep, iw, emb, lvl, cfg_dup=do_cfg).float()
-        rows = 2 * b if do_cfg else b
-        if do_cfg:  # (2, n, b, ...) halves → per window [uncond b, cond b]
-            out = out.reshape(2, n, b, win, h, w, -1).transpose(0, 1)
-        out = out.reshape(n, rows, win, h, w, -1)
+            emb = prompt_embeds.repeat(group, 1, 1)
+        lat = lat.to(self.dtype)
+        outs = []
+        for g0 in range(0, n, group):  # window-major rows: window k's bc rows together
+            gather = lambda v: v[:, idx[g0:g0 + group]].transpose(0, 1).reshape(
+                group * bc, win, h, w, v.shape[-1])
+            out = self.m.unet(gather(lat), tstep, gather(image_noised), emb,
+                              level.repeat(group), cfg_dup=do_cfg).float()
+            if do_cfg:  # (2, group, bc, ...) halves → per window [uncond bc, cond bc]
+                out = out.reshape(2, group, bc, win, h, w, -1).transpose(0, 1)
+            outs.append(out.reshape(group, rows, win, h, w, -1))
         blend_t = torch.as_tensor(blend, device=lat.device)
-        return torch.einsum("nkt,nbkhwc->bthwc", blend_t, out)
+        return torch.einsum("nkt,nbkhwc->bthwc", blend_t, torch.cat(outs))
 
     # ----------------------------------------------------------- decode
     @torch.no_grad()
     def decode_latents(self, latents: torch.Tensor, image_dec: Optional[torch.Tensor] = None,
-                       w_lr: float = 1.0) -> torch.Tensor:
+                       w_lr: float = 1.0, progress_cb=None) -> torch.Tensor:
         """Chunked decode (ref :683-702), clipped to [-1, 1]. A VAE that is
         conditioned on the LR frames takes the matching frames of
         ``image_dec`` (B, T, H, W, 3) with weight ``w_lr``."""
@@ -120,15 +167,24 @@ class VideoUpscalePipeline:
         if cond and image_dec is None:
             raise ValueError("the VAE is conditioned on the LR frames: pass image_dec")
         outs = []
-        for s, e in chunk_starts(latents.shape[1], self.DECODE_CHUNK):
-            z = latents[:, s:e] / vae.config.scaling_factor
-            img = image_dec[:, s:e] if cond else None
-            outs.append(vae.decode(z, img, w_lr).float().clamp(-1.0, 1.0))
+        chunks = chunk_starts(latents.shape[1], self.DECODE_CHUNK)
+        with self._stage(vae):
+            for k, (s, e) in enumerate(chunks):
+                z = latents[:, s:e] / vae.config.scaling_factor
+                img = image_dec[:, s:e] if cond else None
+                outs.append(vae.decode(z, img, w_lr).float().clamp(-1.0, 1.0))
+                self._tick(progress_cb, "decode", k + 1, len(chunks))
         return torch.cat(outs, dim=1)
 
     def check_inputs(self, prompt, image, noise_level, negative_prompt):
+        """Input validation (JAX ``:474-493``, ref check_inputs :356-418)."""
         if prompt is not None and not isinstance(prompt, (str, list)):
             raise ValueError(f"`prompt` must be str or list, got {type(prompt)}")
+        if negative_prompt is not None and not isinstance(negative_prompt, (str, list)):
+            raise ValueError(
+                f"`negative_prompt` must be str or list, got {type(negative_prompt)}")
+        if image is None:
+            raise ValueError("`image` input cannot be undefined")
         if getattr(image, "ndim", None) != 5 or image.shape[-1] != 3:
             raise ValueError(f"`image` must be (B, T, H, W, 3), got "
                              f"{getattr(image, 'shape', None)}")
@@ -139,15 +195,20 @@ class VideoUpscalePipeline:
 
     # --------------------------------------------------------- __call__
     @torch.no_grad()
-    def __call__(self, prompt, image, num_inference_steps: int = 30,
+    def __call__(self, prompt, image, flows_bi=None, num_inference_steps: int = 30,
                  guidance_scale: float = 6.0, noise_level: int = 120, negative_prompt=None,
+                 propagation_steps: Sequence[int] = (),
                  generator: Optional[torch.Generator] = None, latents=None, lr_noise=None,
-                 w_lr: float = 1.0, flows_bi=None, propagation_steps: Sequence[int] = ()):
-        """image: (B, T, H, W, 3) in [-1, 1] → (B, T, 4H, 4W, 3) fp32 in [-1, 1].
-        ``w_lr`` weighs the LR-frame condition of a video VAE's decoder.
-        ``flows_bi``: the (forward, backward) flows (B, T-1, H, W, 2) of the
-        LR frames; x̂0 is propagated along them after ``step_v0`` at each
-        step index in ``propagation_steps``."""
+                 w_lr: float = 1.0, return_latents: bool = False, progress_cb=None):
+        """image: (B, T, H, W, 3) in [-1, 1] → (B, T, 4H, 4W, 3) fp32 in [-1, 1]
+        (with ``return_latents``, also the final fp32 latents before the
+        decode). ``flows_bi``: the (forward, backward) flows (B, T-1, H, W, 2)
+        of the LR frames; x̂0 is propagated along them after ``step_v0`` at
+        each step index in ``propagation_steps``. ``generator`` takes the
+        place of the JAX ``key``. ``w_lr`` weighs the LR-frame condition of a
+        video VAE's decoder. ``progress_cb(stage, done, total)`` is called
+        after each denoise step and each decode chunk, once the card has
+        finished it."""
         self.check_inputs(prompt, image, noise_level, negative_prompt)
         prompt = [prompt] if isinstance(prompt, str) else prompt
         if isinstance(negative_prompt, str):
@@ -180,19 +241,23 @@ class VideoUpscalePipeline:
             flows_f, flows_b = (torch.as_tensor(f, device=dev).float() for f in flows_bi)
         propagated = []
         sched = self.m.scheduler
-        for i, tstep in enumerate(sched.timesteps(num_inference_steps)):
-            tstep = int(tstep)
-            pred = self.unet_on_windows(lat, image_noised, tstep, prompt_embeds, level, do_cfg)
-            if do_cfg:
-                uncond, cond = pred.chunk(2, dim=0)
-                pred = uncond + guidance_scale * (cond - uncond)
-            x0 = sched.step_v0(pred, tstep, lat)
-            if i in prop:
-                x0 = propagate_latents(x0, flows_f, flows_b)
-                propagated.append(i)
-            lat = sched.step_vt(x0, pred, tstep, lat, num_inference_steps)
+        with self._stage(self.m.unet):
+            for i, tstep in enumerate(sched.timesteps(num_inference_steps)):
+                tstep = int(tstep)
+                pred = self.unet_on_windows(lat, image_noised, tstep, prompt_embeds, level,
+                                            do_cfg)
+                if do_cfg:
+                    uncond, cond = pred.chunk(2, dim=0)
+                    pred = uncond + guidance_scale * (cond - uncond)
+                x0 = sched.step_v0(pred, tstep, lat)
+                if i in prop:
+                    x0 = propagate_latents(x0, flows_f, flows_b)
+                    propagated.append(i)
+                lat = sched.step_vt(x0, pred, tstep, lat, num_inference_steps)
+                self._tick(progress_cb, "denoise", i + 1, num_inference_steps)
         self.propagated_steps = tuple(propagated)
-        return self.decode_latents(lat, image_dec, w_lr)
+        images = self.decode_latents(lat, image_dec, w_lr, progress_cb)
+        return (images, lat) if return_latents else images
 
 
 def build_module(cls, config, device: torch.device, dtype: torch.dtype,
