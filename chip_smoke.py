@@ -24,9 +24,11 @@ Phases (each announced on a flushed line with the seconds elapsed):
               a power of two, a bf16 bias; bf16 with C % 8 != 0, C past one
               pass of the block's threads). Each path below fails if it
               launched a kernel at a shape this phase did not check (the
-              wrappers count launches by shape, ``_cuda.SHAPES``); after the
-              paths, each path's launches times these per-call times give
-              its kernels' seconds against their plain versions'.
+              wrappers count launches by shape, ``_cuda.SHAPES``; kernels 1
+              and 3 also by whether the residual is folded in: both are
+              checked without it at path 1's shapes, as PAB calls them);
+              after the paths, one run's launches times these per-call
+              times give its kernels' seconds against their plain versions'.
   4. path 1   the 3D-VAE configuration: one full-width UNet forward at the
               slice shape with the kernels and then with the plain versions,
               same weights, and for each route the share of a forward's wall
@@ -36,14 +38,34 @@ Phases (each announced on a flushed line with the seconds elapsed):
               into its two convs and its GroupNorm passes); then
               VideoUpscalePipeline at released width on a 64x64, 14-frame
               clip (256x256 out), 30 DDIM steps, CFG 6, noise level 120, fp32
-              3-frame VAE decode; its five kernels must launch. Then the same
-              call on the plain versions (timed), and a 2-step pair.
+              3-frame VAE decode, under step_mode "host" and "scan" (the
+              denoise loop as one CUDA graph once its key comes back): host
+              first with no graph held, then a key's first call (eager),
+              its second (capture and replay) and a warm call (replay); the
+              wrappers count launches when their Python runs, so the eager
+              and the capturing call each count the loop once and a replay
+              none; its five kernels launched; seconds of each call, the
+              calls of one key after which scan's total is below host's,
+              peak allocated and reserved memory; every scan call against
+              host bit for bit at 2 and 30 steps (gated at the spread of two
+              eager runs, which are bit-equal); the card's busy share of
+              the denoise alone under each route. Then the same call on the
+              plain versions (timed), a 2-step pair, and
+              PABConfig(kinds=("cross",)) under scan (eager, capture,
+              replay) and host, all bit-equal: exactly 140 cross-attention
+              launches (20 a forward on 7 of 30 steps), all kernel-1 and
+              kernel-3 launches without the residual, frames/s, the
+              distance to the exact route on the kernels and on the plain
+              versions (reported); 2 steps under every kind cached from
+              step 0 (step 1 broadcasts) with the kernels against the plain
+              versions at the UNet's gate.
   5. path 2   the README's video-VAE configuration: the UNet check at T = 5,
               96x160; then the pipeline on a 96x160, 5-frame clip (384x640
               out), 30 steps, CFG 6, noise level 120, the fp32 video VAE
-              conditioned on the LR frames (w_lr 1.0), then the Wavelet colour
-              fix. Every temporal attention must go through the fused temporal
-              attention (480 launches), none through the whole-block kernel.
+              conditioned on the LR frames (w_lr 1.0), both step modes as on
+              path 1, then the Wavelet colour fix. Every temporal attention
+              must go through the fused temporal attention (480 captured
+              launches), none through the whole-block kernel.
               The same call with the colour fix on the plain versions (timed),
               the decode alone with the kernels against the plain decode
               (relative L2 gate), and a 2-step pair against the plain
@@ -61,9 +83,11 @@ Phases (each announced on a flushed line with the seconds elapsed):
               x̂0 and flows (RAFT's, and a consistent whole-pixel shift so
               that the warp and the fusion act);
               then the pipeline with those flows and propagation at steps 24,
-              26 and 28 (30 steps, CFG 6, noise level 120, w_lr 1.0) and the
-              Wavelet fix: frames/s with and without RAFT, peak memory,
-              exactly 3 propagations and 480 fused temporal attentions; then
+              26 and 28 (30 steps, CFG 6, noise level 120, w_lr 1.0; eager,
+              then captured with the propagation inside the graph) and the
+              Wavelet fix: frames/s of a warm call with and without RAFT,
+              peak memory, exactly 3
+              propagations and 480 captured fused temporal attentions; then
               the VAE encoder on 3 output frames with the kernels against the
               plain versions (relative L2 gate; flash in its mid block).
   7. path 4   the port CLI's per-clip step (``cli.process_clip``) with the
@@ -84,7 +108,27 @@ Phases (each announced on a flushed line with the seconds elapsed):
               versions; flash in the decode at checked shapes), each tile
               with the same noise, in float before the uint8 conversion,
               within relative L2 1e-4; the native frame conversions equal
-              their plain versions exactly on the path's frames.
+              their plain versions exactly on the path's frames. The CLI
+              runs clips over 8 frames step by step (step_mode "host").
+              Then the clip's first 8 frames (one call of two tiles, "scan")
+              as a run of such clips calls them: first, second and third
+              call (eager; capture and replay; replay) against host, equal
+              outputs, launches as predicted, the calls of one key after
+              which scan wins; then with the captioner at LLaVA-1.5-13B
+              widths (bf16) on the card beside the pipeline: peak memory.
+  8. path 5   the captioner: LlavaConfig() (CLIP ViT-L/14-336, LLaMA 5120 x
+              40 layers x 40 heads, vocabulary 32000: 13.3 B parameters) in
+              bf16 with seeded random weights drawn on the card and a byte
+              tokenizer: 8 single-token decode steps against one prefill of
+              the same sequence (last logits within relative L2 2e-2);
+              caption() of path 4's frame 0 after the CLI's resize, greedy
+              and top-p (T 0.2, p 0.7), 64 new tokens; the vision tower,
+              the prefill and a decode step timed, the step against its
+              bound (the decoder's weight bytes and the live KV cache over
+              the card's rate), peak memory. Then the same seed in int8
+              (load_8bit): its prompt logits against bf16 (reported), a
+              decode step against its bound, the weight bytes of both. Then
+              MPT at MPTConfig()'s widths: the same decode check.
 
 It exits non-zero, printing no result, without a CUDA device. Any failure
 raises. The last line is the JSON result; the two lines before it are the
@@ -95,6 +139,8 @@ kernels' JSON record and the card's ``nvidia-smi`` name and power limit.
 runs phases 1-3 for the named kernels alone and writes their records to
 chiprun_out/chip_smoke_only.json (no paths, no result line): a quick
 before/after measure of a kernel, also against an older checkout's package.
+``--paths 1,2,5`` runs every kernel check and then only the named paths (no
+result line; records in chiprun_out/chip_smoke_kernels.json).
 """
 
 from __future__ import annotations
@@ -112,8 +158,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from upscale_a_video_tpu_torch import cli
+from upscale_a_video_tpu_torch import captioner, cli
 from upscale_a_video_tpu_torch.config import VIDEO_VAE
+from upscale_a_video_tpu_torch.models.llava import LlavaCaptioner, LlavaConfig, LlavaModel
+from upscale_a_video_tpu_torch.models.llava.conversation import (build_caption_prompt,
+                                                                 preprocess_image)
+from upscale_a_video_tpu_torch.models.llava.llama import causal_prefill_mask, decode_step_mask
+from upscale_a_video_tpu_torch.models.llava.mpt import MPTConfig, MPTForCausalLM
 from upscale_a_video_tpu_torch.models.propagation import fb_consistency_check, propagate_latents
 from upscale_a_video_tpu_torch.models.raft import RaftRunner, compute_bidirectional_flows, load_raft
 from upscale_a_video_tpu_torch.ops import _cuda
@@ -132,9 +183,10 @@ from upscale_a_video_tpu_torch.ops.temporal_attention_block import (
     fused_temporal_attention_block, temporal_attention_block_plain)
 from upscale_a_video_tpu_torch.ops.temporal_conv import temporal_conv, temporal_conv_plain
 from upscale_a_video_tpu_torch.ops.warp import flow_warp
-from upscale_a_video_tpu_torch.pipeline import load_pipeline, random_pipeline
+from upscale_a_video_tpu_torch.pipeline import PABConfig, load_pipeline, random_pipeline
 from upscale_a_video_tpu_torch.pipeline.color import apply_color_fix
-from upscale_a_video_tpu_torch.utils import native_frameproc, video_io
+from upscale_a_video_tpu_torch.utils import native_frameproc, quant, video_io
+from upscale_a_video_tpu_torch.weights import init_random_
 
 T0 = time.time()
 PEAK_FLOPS = 989e12   # H100 SXM dense bf16 (data sheet)
@@ -147,6 +199,7 @@ FLOW_TOL = 1e-2       # relative L2, RAFT's fp32 flows on the card against the C
 PROP_TOL = 1e-5       # max |card - CPU|, fp32 propagation of the same x̂0 along the same flows
 ENCODE_TOL = 1e-2     # relative L2, fp32 encode whose one bf16 step is the mid-block attention
 TILE_TOL = 1e-4       # relative L2, 2 fp32 steps + fp32 decode: tiles batched 2 against 1 per call
+DECODE_STEP_TOL = 2e-2  # relative L2, bf16 logits: single-token steps against one prefill
 FRAMES, LR, STEPS = 14, 64, 30            # path 1: 64x64, 14 frames
 FRAMES2, H2, W2 = 5, 96, 160              # path 2 (and 3): 96x160, 5 frames
 PROP_STEPS = (24, 26, 28)                 # path 3: the headline command's -p 24,26,28
@@ -183,6 +236,12 @@ FF_SITES = ((32, 1024, 512), (32, 256, 512), (32, 64, 1024),
 # at the UNet levels of paths 1 and 4
 TAB_SITES = ((32, 1024, 512), (32, 256, 512), (32, 64, 1024),
              (32, 6144, 512), (32, 1536, 512), (32, 384, 1024))
+# (site, add_residual) of kernels 1 and 3: with the residual folded in at
+# every site, and at path 1's sites also without it (Pyramid Attention
+# Broadcast caches the attention's delta, so the add runs outside)
+TAB_RUNS = tuple((site, 1) for site in TAB_SITES) + tuple((site, 0) for site in TAB_SITES[:3])
+CAB_SITES = ((4, 8, 1024), (4, 8, 256), (2, 5, 3840), (2, 5, 960), (4, 8, 6144), (4, 8, 1536))
+CAB_RUNS = tuple((site, 1) for site in CAB_SITES) + tuple((site, 0) for site in CAB_SITES[:2])
 # shapes no path gives a kernel, one for each of its built variants: flash at
 # each head width (64, 128 and 256; 80 and 384 run padded to 128 and 512,
 # key counts not a multiple of any tile); the conv at T > 8, Cin = 1024 !=
@@ -215,6 +274,7 @@ DEVICE_KERNELS = (("cab_kernel", "cross_attention_block"),
                   ("gn_", "fused_temporal_resblock"),
                   ("fta_", "fused_temporal_attention"),
                   ("flash_wgmma_kernel", "flash_attention"))
+PAB_COMPUTED = (0, 1, 2, 8, 14, 20, 26)  # steps PABConfig() computes the cross-attention at
 PATH1_KERNELS = ("temporal_attention_block", "fused_temporal_resblock", "cross_attention_block",
                  "fused_feedforward", "flash_attention")
 PATH2_KERNELS = ("fused_temporal_attention", "fused_temporal_resblock", "cross_attention_block",
@@ -368,8 +428,9 @@ def check_kernels(only=None):
     recs = []
     inp = Inputs(1)
     want = lambda name: only is None or name in only
-    # 1. temporal attention block: every UNet transformer level of paths 1 and 4
-    for bt, s, c in TAB_SITES if want("temporal_attention_block") else ():
+    # 1. temporal attention block: every UNet transformer level of paths 1 and
+    # 4, and path 1's levels without the residual (the delta PAB caches)
+    for (bt, s, c), res in TAB_RUNS if want("temporal_attention_block") else ():
         x = inp.normal(bt, s, c)
         lw, lb = inp.norm(c)
         wq, wk, wv, wo = (inp.weight(c, c) for _ in range(4))
@@ -378,9 +439,9 @@ def check_kernels(only=None):
         args = (x, lw, lb, wq, wk, wv, wo, bo, bias)
         tokens = x.shape[0] * s
         recs.append(compare(
-            "temporal_attention_block", [bt, s, c, 8],
-            lambda: fused_temporal_attention_block(*args, video_length=8, add_residual=True),
-            lambda: temporal_attention_block_plain(*args, 8, 32, 1e-5, True),
+            "temporal_attention_block", [bt, s, c, 8, res],
+            lambda: fused_temporal_attention_block(*args, video_length=8, add_residual=bool(res)),
+            lambda: temporal_attention_block_plain(*args, 8, 32, 1e-5, bool(res)),
             nbytes(x, x, lw, lb, wq, wk, wv, wo, bo, bias),
             tokens * (8 * c * c + 4 * 8 * c)))
     # 2. temporal resblock at every site of the paths
@@ -402,9 +463,9 @@ def check_kernels(only=None):
             nbytes(x, x, w1, w2, b1, b2, n1w, n1b, n2w, n2b),
             2.0 * rows * c * c * (taps(k, t) + taps(3, t)), trace=True))
     # 3. text cross-attention at the C = 512 levels: paths 1 and 4 (context
-    # (4, 77, 1024), T = 8) and path 2 (context (2, 77, 1024), T = 5)
-    for b, t, s in (((4, 8, 1024), (4, 8, 256), (2, 5, 3840), (2, 5, 960), (4, 8, 6144),
-                     (4, 8, 1536)) if want("cross_attention_block") else ()):
+    # (4, 77, 1024), T = 8) and path 2 (context (2, 77, 1024), T = 5), and
+    # path 1's levels without the residual (the delta PAB caches)
+    for (b, t, s), res in CAB_RUNS if want("cross_attention_block") else ():
         ctx = inp.normal(b, 77, 1024)
         wk_, wv_ = inp.weight(512, 1024), inp.weight(512, 1024)
         k_, v_ = F.linear(ctx, wk_), F.linear(ctx, wv_)
@@ -414,11 +475,13 @@ def check_kernels(only=None):
         bo = inp.normal(512, scale=0.1)
         m, vo = fold(wq, k_, v_, wo, 8, 64)
         recs.append(compare(
-            "cross_attention_block", [b * t, s, 512, t],
+            "cross_attention_block", [b * t, s, 512, t, res],
             lambda: fused_cross_attention_block(x, lw, lb, wq, k_, v_, wo, bo, heads=8,
-                                                dim_head=64, t_repeat=t, add_residual=True),
+                                                dim_head=64, t_repeat=t,
+                                                add_residual=bool(res)),
             lambda: cross_attention_block_plain(x, lw, lb, m.to(torch.bfloat16),
-                                                vo.to(torch.bfloat16), 77, bo, t, 1e-5, True),
+                                                vo.to(torch.bfloat16), 77, bo, t, 1e-5,
+                                                bool(res)),
             nbytes(x, x, lw, lb, wq, k_, v_, wo, bo),
             float(b * t) * s * 4 * 512 * 8 * 77))
         # the fold of M and Vo, part of every call (its two products are
@@ -541,8 +604,8 @@ def busy_share(fn):
     """The card's kernel time during one call of ``fn``, split by port kernel
     (:func:`device_split`), the call's wall time (host clock, synchronised),
     in seconds, the wrappers' launches in the call, and the temporal
-    resblock's device time by part (:func:`device_parts`)."""
-    fn()
+    resblock's device time by part (:func:`device_parts`). ``fn`` must
+    have run before (its lazy state made)."""
     torch.cuda.synchronize()
     _cuda.reset_launch_counts()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -636,50 +699,239 @@ def kernel_seconds(shapes, by_key):
     return out
 
 
-def run_path1(pipe, card: str, checked):
-    g = torch.Generator(device="cuda").manual_seed(3)
-    image = torch.rand((1, FRAMES, LR, LR, 3), generator=g, device="cuda") * 2 - 1
+def captured_loop(pipe, steps: int, pab=None):
+    """The pipeline's captured denoise loop, which must be the one of
+    ``steps`` steps under ``pab`` (fields 1 and 7 of its key)."""
+    key = pipe.graphs.key
+    if key is None or key[1] != steps or key[7] != pab:
+        raise AssertionError(f"expected the captured {steps}-step loop under {pab}, held: "
+                             f"{key and key[:8]}")
+    return pipe.graphs.loop
+
+
+def timed_call(run, *args):
+    """``run(*args)`` between syncs: its output, wall seconds, peak allocated
+    and reserved GiB, the wrappers' launches and launches by shape."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _cuda.reset_launch_counts()
     t0 = time.time()
-    out = pipe("a video", image, num_inference_steps=STEPS, guidance_scale=6.0, noise_level=120,
-               generator=torch.Generator(device="cuda").manual_seed(4))
+    out = run(*args)
     torch.cuda.synchronize()
-    secs = time.time() - t0
-    launches, shapes = dict(_cuda.LAUNCHES), launch_shapes()
-    fps = FRAMES / secs
-    peak = torch.cuda.max_memory_allocated()
-    log(f"path 1 e2e: {FRAMES} frames {LR}x{LR} -> {tuple(out.shape)} in {secs:.2f} s: "
-        f"{fps:.4f} frames/s on {card}")
-    log(f"max_memory_allocated={peak / 2**30:.2f} GiB")
-    check_output(out, (1, FRAMES, 4 * LR, 4 * LR, 3))
-    check_launches("path 1", launches, shapes, PATH1_KERNELS, checked)
+    return dict(out=out, s=time.time() - t0, peak=torch.cuda.max_memory_allocated() / 2**30,
+                reserved=torch.cuda.max_memory_reserved() / 2**30,
+                launches=dict(_cuda.LAUNCHES), shapes=launch_shapes())
 
-    # the same call on the plain PyTorch versions, for the kernels' end-to-end
-    # effect. 30 bf16 steps with CFG 6 amplify rounding chaotically, so the
-    # 30-step outputs are compared as distributions; a 2-step pair shows the
-    # pointwise distance before the amplification. Reported, not gated: the
-    # gates are the per-kernel and the UNet checks.
+
+def break_even(first: float, capture: float, replay: float, host: float) -> float:
+    """n such that n calls of one key take less time under "scan" than under
+    "host" once the count passes n: scan runs the first call eagerly
+    (``first``), captures and replays the second (``capture``) and replays
+    the rest (``replay``); host takes ``host`` a call."""
+    return (first + capture - 2 * replay) / (host - replay) if host > replay else float("inf")
+
+
+def loop_only(launches):
+    """Launches without the decode's (flash in the VAE's mid block)."""
+    return {k: v for k, v in launches.items() if v and k != "flash_attention"}
+
+
+def scan_and_host(pipe, run, frames: int, path: str, kernels, checked):
+    """The path's call ``run(steps)`` under ``step_mode="host"`` and
+    ``"scan"`` (the default). Host first, with no graph held: two 2-step
+    calls, whose spread sets the equality gate (bit-equal runs make it
+    exact, else their relative L2 is the gate), then a 30-step call. Then
+    scan: 2 steps twice (the key's first call runs eagerly, the second is
+    captured and replayed), then 30 steps three times (eager; capture and
+    replay; replay), each gated against host's output of its length. The
+    wrappers count launches when their Python runs: the eager call and the
+    capturing call each count one loop, a replay none. Seconds and peak
+    allocated and reserved memory of each call, the number of calls of one
+    key after which scan's total is below host's, and the card's busy share
+    of the denoise alone under each route. Returns the replayed output and
+    a record."""
+    pipe.graphs.clear()
+    torch.cuda.empty_cache()
+    pipe.step_mode = "host"
+    e1, e2 = run(2), run(2)
+    spread = rel_l2(e1, e2)
+    gate = (lambda a, b: torch.equal(a, b)) if spread == 0 else (
+        lambda a, b: rel_l2(a, b) <= spread)
+    host = timed_call(run, STEPS)
+    pipe.step_mode = "scan"
+    s1, s2 = run(2), run(2)
+    captured_loop(pipe, 2)
+    first = timed_call(run, STEPS)
+    captured_loop(pipe, 2)  # the 30-step key's first call did not capture
+    capture = timed_call(run, STEPS)
+    loop = captured_loop(pipe, STEPS)
+    warm = timed_call(run, STEPS)
+    launches, shapes = capture["launches"], capture["shapes"]
+    n_even = break_even(first["s"], capture["s"], warm["s"], host["s"])
+    log(f"{path} scan: the key's first call {first['s']:.2f} s (eager), the second "
+        f"{capture['s']:.2f} s (capture {loop.capture_s:.2f} s, one replay, the decode), warm "
+        f"calls {warm['s']:.2f} s ({frames / warm['s']:.4f} frames/s); host {host['s']:.2f} s "
+        f"({frames / host['s']:.4f} frames/s); scan's total is below host's after {n_even:.2f} "
+        f"calls of one key")
+    log(f"{path} launches counted in the eager call: {json.dumps(first['launches'])}; in the "
+        f"capturing call: {json.dumps(launches)}; captured: {json.dumps(loop.launches)}; in a "
+        f"replaying call: {json.dumps(loop_only(warm['launches']))} (the decode's aside)")
+    check_launches(path, launches, shapes, kernels, checked)
+    if not (first["launches"] == launches == host["launches"]
+            and loop_only(launches) == loop.launches and not loop_only(warm["launches"])):
+        raise AssertionError(f"{path}: the eager, capturing and host calls must each count one "
+                             f"loop, the capture alone that loop, and a replay none")
+    log(f"{path} peak allocated / reserved GiB: host {host['peak']:.2f} / {host['reserved']:.2f} "
+        f"(no graph held), scan eager {first['peak']:.2f} / {first['reserved']:.2f}, capturing "
+        f"{capture['peak']:.2f} / {capture['reserved']:.2f}, warm {warm['peak']:.2f} / "
+        f"{warm['reserved']:.2f} (the {STEPS}-step graph held)")
+    equal = {"eager_vs_eager_2_steps": spread, "scan_eager_vs_host_2_steps": rel_l2(s1, e1),
+             "scan_replay_vs_host_2_steps": rel_l2(s2, e1),
+             "scan_eager_vs_host": rel_l2(first["out"], host["out"]),
+             "scan_replay_vs_host": rel_l2(capture["out"], host["out"]),
+             "replay_vs_replay": rel_l2(warm["out"], capture["out"])}
+    log(f"{path} relative L2 (0 = bit-equal here): {json.dumps(equal)}")
+    if not (gate(s1, e1) and gate(s2, e1) and gate(first["out"], host["out"])
+            and gate(capture["out"], host["out"]) and torch.equal(warm["out"], capture["out"])):
+        raise AssertionError(f"{path}: the scan route disagrees with the host route beyond the "
+                             f"eager-vs-eager spread {spread:.3e}, or two replays differ")
+
+    kw = dict(num_inference_steps=STEPS, guidance_scale=6.0, propagation_steps=frozenset())
+    with torch.no_grad():
+        scan_busy, scan_wall = busy_share(loop.graph.replay)[:2]
+        host_busy, host_wall = busy_share(lambda: pipe.denoise(*loop.static, **kw))[:2]
+    log(f"{path} denoise alone ({STEPS} steps), card busy / wall (profiled): scan "
+        f"{scan_busy * 1e3:.1f} / {scan_wall * 1e3:.1f} ms ({scan_busy / scan_wall:.1%}), host "
+        f"{host_busy * 1e3:.1f} / {host_wall * 1e3:.1f} ms ({host_busy / host_wall:.1%}); the "
+        f"host route's kernel time over the scan route's wall: {host_busy / scan_wall:.1%}")
+    return capture["out"], dict(
+        first_call_seconds=first["s"], capture_call_seconds=capture["s"],
+        capture_seconds=loop.capture_s, captured_launches=loop.launches,
+        scan_seconds=warm["s"], host_seconds=host["s"], break_even_calls=n_even,
+        scan_frames_per_s=frames / warm["s"], host_frames_per_s=frames / host["s"],
+        peak_gib={k: dict(allocated=r["peak"], reserved=r["reserved"])
+                  for k, r in (("host", host), ("scan_eager", first), ("scan_capture", capture),
+                               ("scan_warm", warm))},
+        rel_l2=equal, eager_rel_l2=spread,
+        scan_denoise_busy_s=scan_busy, scan_denoise_wall_s=scan_wall,
+        host_denoise_busy_s=host_busy, host_denoise_wall_s=host_wall,
+        launches=launches, launches_by_shape=shapes, loop_launches_by_shape=host["shapes"])
+
+
+def run_path1(pipe, card: str, checked):
+    g = torch.Generator(device="cuda").manual_seed(3)
+    image = torch.rand((1, FRAMES, LR, LR, 3), generator=g, device="cuda") * 2 - 1
     run = lambda steps: pipe("a video", image, num_inference_steps=steps, guidance_scale=6.0,
                              noise_level=120,
                              generator=torch.Generator(device="cuda").manual_seed(4))
+    out, rec = scan_and_host(pipe, run, FRAMES, "path 1", PATH1_KERNELS, checked)
+    check_output(out, (1, FRAMES, 4 * LR, 4 * LR, 3))
+    secs = rec["scan_seconds"]
+    log(f"path 1 e2e (warm, scan): {FRAMES} frames {LR}x{LR} -> {tuple(out.shape)} in "
+        f"{secs:.2f} s: {FRAMES / secs:.4f} frames/s on {card}")
+    same = (lambda a, b: torch.equal(a, b)) if rec["eager_rel_l2"] == 0 else (
+        lambda a, b: rel_l2(a, b) <= rec["eager_rel_l2"])
+
+    # the same call on the plain PyTorch versions (host route, as the kernel
+    # route's host call), for the kernels' end-to-end effect. 30 bf16 steps
+    # with CFG 6 amplify rounding chaotically, so the 30-step outputs are
+    # compared as distributions; a 2-step pair shows the pointwise distance
+    # before the amplification. Reported, not gated: the gates are the
+    # per-kernel and the UNet checks.
+    pipe.step_mode = "host"
+    out2 = run(2)
     with _cuda.plain_path():
         t0 = time.time()
         ref = run(STEPS)
         torch.cuda.synchronize()
         plain_secs = time.time() - t0
         ref2 = run(2)
-    out2 = run(2)
-    log(f"e2e plain versions: {plain_secs:.2f} s: {FRAMES / plain_secs:.4f} frames/s; "
-        f"mean/std kernels {out.mean().item():.4f}/{out.std().item():.4f}, plain "
+    log(f"e2e plain versions (host): {plain_secs:.2f} s: {FRAMES / plain_secs:.4f} frames/s "
+        f"(kernels, host: {rec['host_seconds']:.2f} s); mean/std kernels "
+        f"{out.mean().item():.4f}/{out.std().item():.4f}, plain "
         f"{ref.mean().item():.4f}/{ref.std().item():.4f}; 30 steps |kernels - plain| max "
-        f"{(out - ref).abs().max().item():.4f} mean {(out - ref).abs().mean().item():.5f}; "
+        f"{(out - ref).abs().max().item():.4f} mean {(out - ref).abs().mean().item():.5f} "
+        f"rel L2 {rel_l2(out, ref):.3e}; "
         f"2 steps max {(out2 - ref2).abs().max().item():.4f} mean "
-        f"{(out2 - ref2).abs().mean().item():.5f}")
-    return dict(launches=launches, launches_by_shape=shapes, seconds=secs,
-                plain_seconds=plain_secs, frames=FRAMES,
-                frames_per_s=fps, peak_gib=peak / 2**30)
+        f"{(out2 - ref2).abs().mean().item():.5f} rel L2 {rel_l2(out2, ref2):.3e}")
+
+    # Pyramid Attention Broadcast on the text cross-attentions (bench.py:159):
+    # the key's first call eagerly, the second captured, the third replayed;
+    # kernel 3 runs on the 7 computed steps of 30 (0, 1, 2, 8, 14, 20, 26),
+    # 20 launches a forward; with a cache no attention folds its residual,
+    # so every launch of kernels 1 and 3 is a delta (add_residual 0). The
+    # host loop under the same config gives the reference: the cached
+    # deltas, which live in the graph's pool across all 30 replayed steps,
+    # must give what the eager loop gives, within the eager spread.
+    pipe.step_mode = "scan"
+    pipe.pab = PABConfig(kinds=("cross",))
+    pab_first = timed_call(run, STEPS)
+    pab_cap = timed_call(run, STEPS)
+    loop = captured_loop(pipe, STEPS, pipe.pab)
+    pab_warm = timed_call(run, STEPS)
+    pipe.step_mode = "host"
+    pab_host = timed_call(run, STEPS)
+    with _cuda.plain_path():  # the plain versions' distance to their exact route (ref)
+        pab_plain = run(STEPS)
+    pab_secs = pab_warm["s"]
+    pab_rel, plain_rel = rel_l2(pab_warm["out"], out), rel_l2(pab_plain, ref)
+    pab_launches, pab_shapes = pab_cap["launches"], pab_cap["shapes"]
+    residual = {k: sum(n for run_ in (pab_cap, pab_host) for shape, n in
+                       _cuda_shapes(run_["shapes"], k) if shape[-1] == 1)
+                for k in ("cross_attention_block", "temporal_attention_block")}
+    log(f"path 1 with PABConfig(kinds=('cross',)), scan: first call {pab_first['s']:.2f} s "
+        f"(eager), capturing call {pab_cap['s']:.2f} s, warm {pab_secs:.2f} s "
+        f"({FRAMES / pab_secs:.4f} frames/s against {FRAMES / secs:.4f}); host "
+        f"{pab_host['s']:.2f} s; captured launches {json.dumps(loop.launches)}; launches with "
+        f"the residual folded {json.dumps(residual)}; replay against host rel L2 "
+        f"{rel_l2(pab_cap['out'], pab_host['out']):.3e}, eager scan against host "
+        f"{rel_l2(pab_first['out'], pab_host['out']):.3e}; output rel L2 against the exact "
+        f"route {pab_rel:.3e}, on the plain versions {plain_rel:.3e} (approximate by design: "
+        f"reported, not gated)")
+    check_launches("path 1 under PAB", pab_launches, pab_shapes, PATH1_KERNELS, checked)
+    if (loop.launches.get("cross_attention_block") != 20 * len(PAB_COMPUTED)
+            or loop.launches.get("temporal_attention_block") != 16 * STEPS or any(residual.values())
+            or pab_first["launches"] != pab_launches or pab_host["launches"] != pab_launches):
+        raise AssertionError(f"path 1 under PAB: captured {loop.launches}, with the residual "
+                             f"{residual}; expected {20 * len(PAB_COMPUTED)} cross-attentions, "
+                             f"{16 * STEPS} temporal attention blocks, all without the residual, "
+                             f"and the eager and host calls launching what the capture did")
+    if not (same(pab_cap["out"], pab_host["out"]) and same(pab_first["out"], pab_host["out"])
+            and torch.equal(pab_warm["out"], pab_cap["out"])):
+        raise AssertionError("path 1 under PAB: the scan route disagrees with the host route "
+                             "beyond the eager-vs-eager spread, or two replays differ")
+
+    # every kind cached from step 0: step 1 of 2 broadcasts the deltas of
+    # step 0; the kernels against the plain versions at the UNet's gate
+    pipe.pab = PABConfig(start_step=0)
+    all2 = timed_call(run, 2)
+    with _cuda.plain_path():
+        all2_plain = run(2)
+    pipe.pab = None
+    pipe.step_mode = "scan"
+    all2_rel = rel_l2(all2["out"], all2_plain)
+    log(f"path 1, 2 steps under PABConfig(start_step=0) (every kind broadcast at step 1): rel L2 "
+        f"kernels vs plain {all2_rel:.3e} (tol {UNET_TOL}); launches {json.dumps(all2['launches'])}")
+    check_launches("path 1 under PAB, every kind", all2["launches"], all2["shapes"],
+                   ("temporal_attention_block", "cross_attention_block"), checked)
+    if not (torch.isfinite(all2["out"]).all() and all2_rel <= UNET_TOL):
+        raise AssertionError(f"path 1 under PAB: kernels disagree with the plain versions: "
+                             f"{all2_rel:.3e}")
+    return dict(rec, seconds=secs, plain_seconds=plain_secs, frames=FRAMES,
+                frames_per_s=FRAMES / secs, kernels_vs_plain_rel_l2=rel_l2(out, ref),
+                two_step_kernels_vs_plain_rel_l2=rel_l2(out2, ref2),
+                pab=dict(first_call_seconds=pab_first["s"], capture_call_seconds=pab_cap["s"],
+                         seconds=pab_secs, host_seconds=pab_host["s"],
+                         frames_per_s=FRAMES / pab_secs, captured_launches=loop.launches,
+                         launches=pab_launches, rel_l2_vs_exact=pab_rel,
+                         plain_rel_l2_vs_exact=plain_rel,
+                         scan_vs_host_rel_l2=rel_l2(pab_cap["out"], pab_host["out"]),
+                         every_kind_two_step_kernels_vs_plain_rel_l2=all2_rel))
+
+
+def _cuda_shapes(shapes, kernel):
+    """(shape tuple, launches) of one kernel from :func:`launch_shapes`."""
+    return [(tuple(json.loads(k)), n) for k, n in shapes.get(kernel, {}).items()]
 
 
 def run_path2(pipe, card: str, checked):
@@ -691,9 +943,17 @@ def run_path2(pipe, card: str, checked):
     run = lambda steps: pipe("a video", image, num_inference_steps=steps, guidance_scale=6.0,
                              noise_level=120, w_lr=1.0,
                              generator=torch.Generator(device="cuda").manual_seed(4))
+    out, rec = scan_and_host(pipe, run, FRAMES2, "path 2", PATH2_KERNELS, checked)
+    check_output(out, (1, FRAMES2, 4 * H2, 4 * W2, 3))
+    captured = rec["captured_launches"]
+    if captured.get("fused_temporal_attention") != 16 * STEPS or "temporal_attention_block" in \
+            captured:
+        raise AssertionError("path 2 must run its 16 temporal attentions per step through the "
+                             "fused temporal attention and none through the whole-block kernel")
+
+    # end to end with the colour fix (warm, scan)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    _cuda.reset_launch_counts()
     t0 = time.time()
     out = run(STEPS)
     torch.cuda.synchronize()
@@ -701,25 +961,21 @@ def run_path2(pipe, card: str, checked):
     fixed = apply_color_fix("Wavelet", out[0], image[0])[None]
     torch.cuda.synchronize()
     secs = time.time() - t0
-    launches, shapes = dict(_cuda.LAUNCHES), launch_shapes()
     peak = torch.cuda.max_memory_allocated()
     fps = FRAMES2 / secs
-    log(f"path 2 e2e: {FRAMES2} frames {H2}x{W2} -> {tuple(fixed.shape)} in {secs:.2f} s "
-        f"(pipeline {pipe_secs:.2f} s, colour fix {secs - pipe_secs:.2f} s): {fps:.4f} "
-        f"frames/s on {card}")
-    log(f"max_memory_allocated={peak / 2**30:.2f} GiB")
-    check_output(out, (1, FRAMES2, 4 * H2, 4 * W2, 3))
+    log(f"path 2 e2e (warm, scan): {FRAMES2} frames {H2}x{W2} -> {tuple(fixed.shape)} in "
+        f"{secs:.2f} s (pipeline {pipe_secs:.2f} s, colour fix {secs - pipe_secs:.2f} s): "
+        f"{fps:.4f} frames/s on {card}")
+    log(f"max_memory_allocated={peak / 2**30:.2f} GiB, max_memory_reserved="
+        f"{torch.cuda.max_memory_reserved() / 2**30:.2f} GiB (the graph held)")
     log(f"colour-fixed output finite={bool(torch.isfinite(fixed).all())} "
         f"min={fixed.min().item():.4f} max={fixed.max().item():.4f}")
     if fixed.shape != out.shape or not torch.isfinite(fixed).all():
         raise AssertionError("colour-fixed output has the wrong shape or is not finite")
-    check_launches("path 2", launches, shapes, PATH2_KERNELS, checked)
-    if launches["fused_temporal_attention"] != 16 * STEPS or launches["temporal_attention_block"]:
-        raise AssertionError("path 2 must run its 16 temporal attentions per step through the "
-                             "fused temporal attention and none through the whole-block kernel")
 
-    # the same call and colour fix on the plain PyTorch versions, for the
-    # kernels' end-to-end effect (reported, not gated, as on path 1)
+    # the same call and colour fix on the plain PyTorch versions (host route),
+    # for the kernels' end-to-end effect (reported, not gated, as on path 1)
+    pipe.step_mode = "host"
     with _cuda.plain_path():
         torch.cuda.synchronize()
         t0 = time.time()
@@ -727,8 +983,8 @@ def run_path2(pipe, card: str, checked):
         ref_fixed = apply_color_fix("Wavelet", ref[0], image[0])[None]
         torch.cuda.synchronize()
         plain_secs = time.time() - t0
-    log(f"path 2 e2e plain versions: {plain_secs:.2f} s: {FRAMES2 / plain_secs:.4f} frames/s; "
-        f"mean/std kernels {fixed.mean().item():.4f}/{fixed.std().item():.4f}, plain "
+    log(f"path 2 e2e plain versions (host): {plain_secs:.2f} s: {FRAMES2 / plain_secs:.4f} "
+        f"frames/s; mean/std kernels {fixed.mean().item():.4f}/{fixed.std().item():.4f}, plain "
         f"{ref_fixed.mean().item():.4f}/{ref_fixed.std().item():.4f}")
 
     # the decode alone on latents of the same shape: its time, and the decode
@@ -750,18 +1006,22 @@ def run_path2(pipe, card: str, checked):
         raise AssertionError(f"the decode with kernels disagrees with the plain decode: "
                              f"{dec_rel:.3e}")
 
-    # a 2-step pair against the plain versions (reported, not gated)
+    # a 2-step pair against the plain versions (host route; reported, not gated)
     with _cuda.plain_path():
         ref2 = run(2)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     out2 = run(2)
-    peak2 = torch.cuda.max_memory_allocated()
+    pipe.step_mode = "scan"
     log(f"path 2, 2 steps: |kernels - plain| max {(out2 - ref2).abs().max().item():.4f} mean "
         f"{(out2 - ref2).abs().mean().item():.5f}")
 
-    # the same 2 steps with the UNet and VAE weights offloaded to the host
-    # between their stages: the same output, bit for bit
+    # 2 steps (scan: each call the key's first, so eager; every move of a
+    # module drops the held graph) with the UNet and VAE weights resident,
+    # then offloaded to the host between their stages: the same output, bit
+    # for bit
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    res2 = run(2)
+    peak2 = torch.cuda.max_memory_allocated()
     pipe.enable_model_offload()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -773,12 +1033,11 @@ def run_path2(pipe, card: str, checked):
     pipe.enable_model_offload(False)
     log(f"path 2, 2 steps with enable_model_offload(): {off_secs:.2f} s, peak "
         f"{off_peak / 2**30:.2f} GiB against {peak2 / 2**30:.2f} GiB resident; equal to the "
-        f"resident call: {torch.equal(off2, out2)}")
-    if not torch.equal(off2, out2):
+        f"resident call: {torch.equal(off2, res2)}")
+    if not torch.equal(off2, res2):
         raise AssertionError(f"the offloaded call differs from the resident one: max |diff| "
-                             f"{(off2 - out2).abs().max().item():.3e}")
-    return dict(launches=launches, launches_by_shape=shapes, seconds=secs,
-                pipeline_seconds=pipe_secs, plain_seconds=plain_secs,
+                             f"{(off2 - res2).abs().max().item():.3e}")
+    return dict(rec, seconds=secs, pipeline_seconds=pipe_secs, plain_seconds=plain_secs,
                 decode_seconds=decode_secs, decode_rel_l2=dec_rel,
                 frames=FRAMES2, frames_per_s=fps,
                 peak_gib=peak / 2**30, two_step_peak_gib=peak2 / 2**30,
@@ -871,31 +1130,48 @@ def run_path3(card: str, checked):
         f"propagation max |card - CPU| {diff.abs().max().item():.3e}, "
         f"{int((diff.abs() > PROP_TOL).sum())} of {diff.numel()} values beyond {PROP_TOL}")
 
-    # end to end with the flows, propagation at steps 24, 26, 28, and the colour fix
+    # end to end with the flows, propagation at steps 24, 26, 28, and the
+    # colour fix ("scan", the propagation inside the graph): the key's first
+    # call (eager), the capturing call (each counts one loop's launches),
+    # then a warm call (one replay)
+    e2e = lambda: pipe("a video", image, num_inference_steps=STEPS, guidance_scale=6.0,
+                       noise_level=120, w_lr=1.0, flows_bi=flows, propagation_steps=PROP_STEPS,
+                       generator=torch.Generator(device="cuda").manual_seed(4))
+    eager = timed_call(e2e)
+    first = timed_call(e2e)
+    first_secs = first["s"]
+    launches, shapes = first["launches"], first["shapes"]
+    captured = captured_loop(pipe, STEPS).launches
+    if eager["launches"] != launches or not torch.equal(eager["out"], first["out"]):
+        raise AssertionError("path 3: the eager call and the capturing call differ in launches "
+                             "or output")
+    first = first["out"]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    _cuda.reset_launch_counts()
     t0 = time.time()
-    out = pipe("a video", image, num_inference_steps=STEPS, guidance_scale=6.0, noise_level=120,
-               w_lr=1.0, flows_bi=flows, propagation_steps=PROP_STEPS,
-               generator=torch.Generator(device="cuda").manual_seed(4))
+    out = e2e()
     fixed = apply_color_fix("Wavelet", out[0], image[0])[None]
     torch.cuda.synchronize()
     secs = time.time() - t0
-    launches, shapes = dict(_cuda.LAUNCHES), launch_shapes()
     peak = torch.cuda.max_memory_allocated()
     fps, fps_raft = FRAMES2 / secs, FRAMES2 / (secs + raft_secs)
-    log(f"path 3 e2e: {FRAMES2} frames {H2}x{W2} -> {tuple(fixed.shape)}, propagation at steps "
-        f"{pipe.propagated_steps}: {secs:.2f} s ({fps:.4f} frames/s), with RAFT "
-        f"{secs + raft_secs:.2f} s ({fps_raft:.4f} frames/s) on {card}")
-    log(f"max_memory_allocated={peak / 2**30:.2f} GiB")
+    log(f"path 3 e2e (warm, scan): {FRAMES2} frames {H2}x{W2} -> {tuple(fixed.shape)}, "
+        f"propagation at steps {pipe.propagated_steps}: {secs:.2f} s ({fps:.4f} frames/s), with "
+        f"RAFT {secs + raft_secs:.2f} s ({fps_raft:.4f} frames/s) on {card}; the key's first "
+        f"call {eager['s']:.2f} s (eager), the capturing call {first_secs:.2f} s, captured "
+        f"launches {json.dumps(captured)}")
+    log(f"max_memory_allocated={peak / 2**30:.2f} GiB, max_memory_reserved="
+        f"{torch.cuda.max_memory_reserved() / 2**30:.2f} GiB (the graph held)")
     check_output(out, (1, FRAMES2, 4 * H2, 4 * W2, 3))
-    if fixed.shape != out.shape or not torch.isfinite(fixed).all():
-        raise AssertionError("colour-fixed output has the wrong shape or is not finite")
+    if fixed.shape != out.shape or not torch.isfinite(fixed).all() or not torch.equal(out, first):
+        raise AssertionError("colour-fixed output has the wrong shape or is not finite, or the "
+                             "replay differs from the capturing call")
     if pipe.propagated_steps != PROP_STEPS:
         raise AssertionError(f"propagation ran at steps {pipe.propagated_steps}, not {PROP_STEPS}")
     check_launches("path 3", launches, shapes, PATH2_KERNELS, checked)
-    if launches["fused_temporal_attention"] != 16 * STEPS or launches["temporal_attention_block"]:
+    if (captured.get("fused_temporal_attention") != 16 * STEPS
+            or launches["fused_temporal_attention"] != 16 * STEPS
+            or launches["temporal_attention_block"]):
         raise AssertionError("path 3 must run its 16 temporal attentions per step through the "
                              "fused temporal attention and none through the whole-block kernel")
 
@@ -922,6 +1198,8 @@ def run_path3(card: str, checked):
                 raft_seconds=raft_secs, raft_cold_seconds=raft_cold, raft_cpu_seconds=cpu_secs,
                 flow_rel_l2=flow_rel, mask_share=shares, propagation_max_err=prop_err,
                 propagated_steps=list(pipe.propagated_steps), frames=FRAMES2,
+                first_call_seconds=eager["s"], capture_call_seconds=first_secs,
+                captured_launches=captured,
                 frames_per_s=fps, frames_per_s_with_raft=fps_raft, peak_gib=peak / 2**30,
                 encode_seconds=encode_secs, encode_rel_l2=enc_rel,
                 encode_launches=enc_launches)
@@ -983,6 +1261,10 @@ P4_LAUNCHES = {"temporal_attention_block": 16 * P4_FORWARDS,
                "cross_attention_block": 20 * P4_FORWARDS,
                "fused_feedforward": 16 * P4_FORWARDS, "flash_attention": 5}
 P4_FP32_LAUNCHES = {"flash_attention": 15}
+# path 4's short clip: its first 8 frames, one window a step, 3 decode chunks
+FRAMES4S = 8
+P4S_LAUNCHES = dict(P4_LAUNCHES, **{k: v // 2 for k, v in P4_LAUNCHES.items()
+                                    if k != "flash_attention"}, flash_attention=3)
 
 
 class StageClock:
@@ -1078,7 +1360,9 @@ def run_path4(card: str, checked):
     if unexpected:
         raise AssertionError(f"path 4 launches (got, predicted): {unexpected}")
     calls = recorder.calls
-    del pipe, recorder
+    del recorder
+    short = run_short_clip(pipe, raft, frames_u8[:FRAMES4S], card, checked)
+    del pipe
     torch.cuda.empty_cache()
 
     # 2 steps, both tiles in one call against one tile per call, each tile
@@ -1131,7 +1415,242 @@ def run_path4(card: str, checked):
                 stage_peak_gib=stage_peak, frames=FRAMES4, frames_per_s=fps,
                 peak_gib=peak / 2**30, tile_calls=[list(c) for c in calls],
                 tile_batch_fp32_rel_l2=tile_rel32, tile_batch_fp32_launches=launches32,
-                frameproc_equal=equal)
+                frameproc_equal=equal, short_clip=short)
+
+
+def printable(text: str) -> str:
+    return "".join(c if c.isprintable() else "?" for c in text)
+
+
+def run_short_clip(pipe, raft, frames_u8, card: str, checked):
+    """An 8-frame clip through ``cli.process_clip`` with path 4's flags (one
+    call of its two tiles, under the "scan" the CLI keeps for clips of 8
+    frames or fewer), as a run of such clips calls it: the first call runs
+    the loop eagerly, the second captures and replays it, the third
+    replays; against the host loop (seconds, launches, outputs equal), and
+    the number of calls of one key after which scan's total is below
+    host's. Then the same clip with the captioner at LLaVA-1.5-13B widths
+    (bf16, random weights) on the card beside the pipeline, the graph held:
+    the CLI's peak memory with both."""
+    args = cli.build_parser().parse_args(P4_ARGV)
+    pipe.step_mode, pipe.window_group = "scan", 0  # what the CLI leaves for short clips
+    pipe.graphs.clear()
+    torch.cuda.empty_cache()
+    clip = lambda captioner=None: cli.process_clip(pipe, raft, frames_u8, args, captioner)
+    first, capture, warm = (timed_call(clip) for _ in range(3))
+    loop = captured_loop(pipe, STEPS)
+    pipe.step_mode = "host"
+    host = timed_call(clip)
+    pipe.step_mode = "scan"
+    t = len(frames_u8)
+    n_even = break_even(first["s"], capture["s"], warm["s"], host["s"])
+    log(f"path 4, {t} frames (cli.process_clip, scan): first call {first['s']:.2f} s (eager), "
+        f"second {capture['s']:.2f} s (capture {loop.capture_s:.2f} s), third {warm['s']:.2f} s "
+        f"({t / warm['s']:.4f} frames/s); host {host['s']:.2f} s ({t / host['s']:.4f} frames/s) "
+        f"on {card}; scan's total is below host's after {n_even:.2f} calls of one key; peak "
+        f"allocated / reserved GiB: host {host['peak']:.2f} / {host['reserved']:.2f}, scan "
+        f"warm {warm['peak']:.2f} / {warm['reserved']:.2f}")
+    log(f"path 4, {t} frames: launches of the eager call {json.dumps(first['launches'])}, "
+        f"captured {json.dumps(loop.launches)}")
+    check_launches(f"path 4, {t} frames", first["launches"], first["shapes"], PATH1_KERNELS,
+                   checked)
+    counts = [r["launches"] for r in (first, capture, host)]
+    if (any({k: v for k, v in c.items() if v} != P4S_LAUNCHES for c in counts)
+            or loop_only(warm["launches"])):
+        raise AssertionError(f"path 4, {t} frames: launches (eager, capturing, host) {counts}, "
+                             f"predicted {P4S_LAUNCHES} each; a replay {warm['launches']}")
+    if not all(np.array_equal(r["out"], host["out"]) for r in (first, capture, warm)):
+        raise AssertionError(f"path 4, {t} frames: a scan call's output differs from host's")
+
+    model = random_module(lambda: LlavaModel(LlavaConfig()), 0)
+    cap = LlavaCaptioner(model, tokenizer=ByteTokenizer(), max_new_tokens=64)
+    with_cap = timed_call(clip, lambda frame: printable(cap.caption(frame)))
+    del model, cap
+    torch.cuda.empty_cache()
+    log(f"path 4, {t} frames with the 13B captioner on the card (bf16): {with_cap['s']:.2f} s, "
+        f"peak allocated / reserved {with_cap['peak']:.2f} / {with_cap['reserved']:.2f} GiB "
+        f"against {warm['peak']:.2f} / {warm['reserved']:.2f} GiB without it")
+    return dict(frames=t, first_call_seconds=first["s"], capture_call_seconds=capture["s"],
+                capture_seconds=loop.capture_s, scan_seconds=warm["s"], host_seconds=host["s"],
+                break_even_calls=n_even, launches=first["launches"],
+                captured_launches=loop.launches,
+                peak_gib={k: dict(allocated=r["peak"], reserved=r["reserved"])
+                          for k, r in (("host", host), ("scan_warm", warm),
+                                       ("with_captioner", with_cap))},
+                with_captioner_seconds=with_cap["s"])
+
+
+class ByteTokenizer:
+    """The smoke's stand-in for the LLaMA tokenizer (not in the repository):
+    BOS 1, then one id per UTF-8 byte (3 + byte); ids decode to bytes modulo
+    256 (random weights pick any of the 32,000)."""
+
+    def __call__(self, text, add_special_tokens=True):
+        return {"input_ids": ([1] if add_special_tokens else []) + [3 + c for c in text.encode()]}
+
+    def decode(self, ids, skip_special_tokens=True):
+        return bytes((i - 3) % 256 for i in ids if i >= 3).decode(errors="replace")
+
+
+def random_module(build, seed: int):
+    """``build()`` made on ``meta``, placed on the card in bf16 and filled
+    with PyTorch's initialisers from a seeded generator on the card."""
+    with torch.device("meta"):
+        m = build()
+    m = m.to(torch.bfloat16).to_empty(device="cuda")
+    return init_random_(m, torch.Generator(device="cuda").manual_seed(seed)).eval()
+
+
+def decode_bytes(model) -> int:
+    """Bytes a decode step reads from the decoder's weights: every layer,
+    the final norm and the output projection (one embedding row aside)."""
+    body = model.model if hasattr(model, "model") else model.transformer
+    parts = [body.layers if hasattr(body, "layers") else body.blocks,
+             body.norm if hasattr(body, "norm") else body.norm_f,
+             getattr(model, "lm_head", None) or body.wte]
+    return sum(quant.module_nbytes(m) for m in parts)
+
+
+@torch.no_grad()
+def incremental_check(model, embeds, name: str, n_dec: int = 8):
+    """The last-token logits of one prefill of ``embeds`` (1, S, C) against a
+    prefill of S - n_dec, then n_dec single-token steps on the cache."""
+    s = embeds.shape[1]
+    full, _ = model.prefill(embeds, s) if hasattr(model, "prefill") else prefill_lm(model, embeds, s)
+    last, kv = (model.prefill(embeds[:, :s - n_dec], s) if hasattr(model, "prefill")
+                else prefill_lm(model, embeds[:, :s - n_dec], s))
+    for i in range(s - n_dec, s):
+        logits, kv = model(embeds[:, i:i + 1], torch.full((1,), i, device="cuda"), kv, i,
+                           decode_step_mask(i, s, "cuda"))
+        last = logits[:, -1]
+    rel = rel_l2(last, full)
+    log(f"{name}: {n_dec} single-token steps after a prefill of {s - n_dec} against one prefill "
+        f"of {s}: last logits rel L2 {rel:.3e} (tol {DECODE_STEP_TOL})")
+    if not (torch.isfinite(last).all() and rel <= DECODE_STEP_TOL):
+        raise AssertionError(f"{name}: incremental decoding disagrees with the prefill: {rel:.3e}")
+    return rel
+
+
+def prefill_lm(lm, embeds, max_len: int):
+    """A causal LM's prefill into a fresh cache (``LlavaModel.prefill``
+    without the vision config)."""
+    cfg = lm.config
+    n, hkv, d = cfg.n_layers, (1 if cfg.multiquery else cfg.n_heads), cfg.head_dim
+    s = embeds.shape[1]
+    kv = torch.zeros((n, 2, 1, hkv, max_len, d), dtype=embeds.dtype, device="cuda")
+    logits, kv = lm(embeds, torch.arange(s, device="cuda"), kv, 0,
+                    causal_prefill_mask(s, max_len, "cuda"))
+    return logits[:, -1], kv
+
+
+@torch.no_grad()
+def decode_ms(model, embeds, steps: int = 32):
+    """ms per single-token decode step (CUDA events over ``steps`` steps
+    issued from the host) after a prefill of ``embeds``, and the step's bound:
+    the decoder's weight bytes plus the live KV cache over the card's rate."""
+    s = embeds.shape[1]
+    logits, kv = model.prefill(embeds, s + steps + 1)
+    token = logits.argmax(-1)
+    logits, kv = model.decode_one(token, kv, s)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(steps):
+        logits, kv = model.decode_one(logits.argmax(-1), kv, s + 1 + i)
+    end.record()
+    torch.cuda.synchronize()
+    n, hkv, d = model.llava_config.lm_dims
+    kv_bytes = n * 2 * hkv * (s + 1 + steps / 2) * d * 2  # the live positions, on average
+    return start.elapsed_time(end) / steps, (decode_bytes(model) + kv_bytes) / PEAK_BYTES * 1e3
+
+
+def run_path5(card: str):
+    """The captioner at the released LLaVA-1.5-13B widths on seeded random
+    weights: the incremental-decode check, a caption of path 4's frame 0
+    (greedy and top-p), the stage times against their bounds; then the int8
+    weights of the same seed; then MPT at MPTConfig()'s widths."""
+    cfg = LlavaConfig()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    model = random_module(lambda: LlavaModel(cfg), 0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    bf16_bytes = quant.module_nbytes(model)
+    log(f"LLaVA ({cfg.vision.num_hidden_layers}-layer CLIP ViT-L/14-{cfg.vision.image_size}, "
+        f"LLaMA {cfg.text.hidden_size} x {cfg.text.num_hidden_layers} x "
+        f"{cfg.text.num_attention_heads} heads, vocab {cfg.text.vocab_size}): {n_params / 1e9:.2f} "
+        f"B parameters, {bf16_bytes / 1e9:.2f} GB in bf16, drawn on the card in "
+        f"{time.time() - t0:.1f} s")
+    cap = LlavaCaptioner(model, tokenizer=ByteTokenizer(), max_new_tokens=64)
+    frame = synthetic_clip(6, FRAMES4, H4, W4)[0]
+    resized = captioner._resize_short_side(frame)  # the CLI's preprocessing, then caption()'s
+    pixels = torch.as_tensor(preprocess_image(resized, cfg.vision.image_size), device="cuda")[None]
+    ids, pos = build_caption_prompt(cap.tokenizer)
+    with torch.no_grad():
+        embeds = model.splice(torch.as_tensor(ids, device="cuda")[None],
+                              model.encode_image(pixels), pos)
+        prompt_logits = model.prefill(embeds, embeds.shape[1])[0]
+    inc = incremental_check(model, embeds, "LLaVA-LLaMA")
+    with torch.no_grad():
+        vision_ms = cuda_ms(lambda: model.vision(pixels), reps=5)
+        encode_ms = cuda_ms(lambda: model.encode_image(pixels), reps=5)
+        prefill_ms = cuda_ms(lambda: model.prefill(embeds, embeds.shape[1] + 64), reps=3)
+    step_ms, step_bound = decode_ms(model, embeds)
+    captions = {}
+    for name, temperature in (("greedy", 0.0), ("top_p", 0.2)):
+        cap.temperature = temperature
+        torch.cuda.synchronize()
+        t0 = time.time()
+        captions[name] = (cap.caption(resized), time.time() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"caption of path 4's frame 0 ({frame.shape} -> {resized.shape} -> {cfg.vision.image_size}"
+        f"^2, prompt {embeds.shape[1]} tokens: {len(ids) - 1} text + "
+        f"{embeds.shape[1] - len(ids) + 1} patches): greedy {captions['greedy'][1]:.2f} s, top-p "
+        f"(T 0.2, p 0.7) {captions['top_p'][1]:.2f} s for 64 new tokens; texts (random weights, "
+        f"byte tokenizer): {json.dumps({k: v[0][:60] for k, v in captions.items()})}")
+    log(f"vision tower {vision_ms:.3f} ms (with the projector {encode_ms:.3f} ms); prefill of "
+        f"{embeds.shape[1]} tokens {prefill_ms:.3f} ms; decode {step_ms:.3f} ms per token against "
+        f"its bound {step_bound:.3f} ms ({decode_bytes(model) / 1e9:.2f} GB of weights at "
+        f"{PEAK_BYTES / 1e12:.2f} TB/s); peak {peak:.2f} GiB on {card}")
+    del model, cap
+    torch.cuda.empty_cache()
+
+    # int8 weights of the same seed
+    torch.cuda.reset_peak_memory_stats()
+    model8 = quant.quantize_module_(random_module(lambda: LlavaModel(cfg), 0))
+    torch.cuda.empty_cache()
+    int8_bytes = quant.module_nbytes(model8)
+    with torch.no_grad():
+        logits8 = model8.prefill(embeds, embeds.shape[1])[0]
+    rel8 = rel_l2(logits8, prompt_logits)
+    step8_ms, step8_bound = decode_ms(model8, embeds)
+    peak8 = torch.cuda.max_memory_allocated() / 2**30
+    log(f"load_8bit: {int8_bytes / 1e9:.2f} GB against {bf16_bytes / 1e9:.2f} GB; prompt logits "
+        f"rel L2 against bf16 {rel8:.3e} (reported); decode {step8_ms:.3f} ms per token against "
+        f"its bound {step8_bound:.3f} ms ({decode_bytes(model8) / 1e9:.2f} GB, the dequantize "
+        f"writes a bf16 copy per product); peak {peak8:.2f} GiB")
+    del model8
+    torch.cuda.empty_cache()
+
+    mcfg = MPTConfig()
+    mpt = random_module(lambda: MPTForCausalLM(mcfg), 1)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    m_ids = torch.randint(3, mcfg.vocab_size, (1, 616), generator=g, device="cuda")
+    with torch.no_grad():
+        inc_mpt = incremental_check(mpt, mpt.embed(m_ids), f"MPT ({mcfg.d_model} x "
+                                    f"{mcfg.n_layers} x {mcfg.n_heads} heads, ALiBi)")
+    del mpt
+    torch.cuda.empty_cache()
+    return dict(params=n_params, bf16_bytes=bf16_bytes, int8_bytes=int8_bytes,
+                prompt_tokens=embeds.shape[1], incremental_rel_l2=inc,
+                vision_ms=vision_ms, encode_image_ms=encode_ms, prefill_ms=prefill_ms,
+                decode_ms=step_ms, decode_bound_ms=step_bound,
+                caption_seconds={k: v[1] for k, v in captions.items()},
+                captions={k: v[0] for k, v in captions.items()}, peak_gib=peak,
+                int8_logits_rel_l2=rel8, int8_decode_ms=step8_ms,
+                int8_decode_bound_ms=step8_bound, int8_peak_gib=peak8,
+                mpt_incremental_rel_l2=inc_mpt)
 
 
 def main() -> int:
@@ -1176,51 +1695,68 @@ def main() -> int:
         return 0
     checked = {(r["name"], json.dumps(r["shape"])) for r in recs}
 
-    phase("path 1: model (random weights on the card)")
-    t0 = time.time()
-    pipe = random_pipeline(device="cuda", seed=0)
-    torch.cuda.synchronize()
-    log(f"built the pipeline in {time.time() - t0:.1f} s")
-    phase("path 1: unet")
-    unet1 = check_unet(pipe, 8, LR, LR)
-    phase("path 1: e2e")
-    path1 = dict(run_path1(pipe, card, checked), unet=unet1)
-    del pipe
-    torch.cuda.empty_cache()
+    wanted = (set(sys.argv[sys.argv.index("--paths") + 1].split(","))
+              if "--paths" in sys.argv else {"1", "2", "3", "4", "5"})
+    paths = {}
+    if "1" in wanted:
+        phase("path 1: model (random weights on the card)")
+        t0 = time.time()
+        pipe = random_pipeline(device="cuda", seed=0)
+        torch.cuda.synchronize()
+        log(f"built the pipeline in {time.time() - t0:.1f} s")
+        phase("path 1: unet")
+        unet1 = check_unet(pipe, 8, LR, LR)
+        phase("path 1: e2e, scan against host, PAB")
+        paths["path1"] = dict(run_path1(pipe, card, checked), unet=unet1)
+        del pipe
+        torch.cuda.empty_cache()
 
-    phase("path 2: model (random weights on the card, video VAE)")
-    t0 = time.time()
-    pipe = random_pipeline(device="cuda", seed=0, vae_config=VIDEO_VAE)
-    torch.cuda.synchronize()
-    log(f"built the pipeline in {time.time() - t0:.1f} s")
-    phase("path 2: unet at T = 5")
-    unet2 = check_unet(pipe, FRAMES2, H2, W2)
-    phase("path 2: e2e")
-    path2 = dict(run_path2(pipe, card, checked), unet=unet2)
-    del pipe
-    torch.cuda.empty_cache()
+    if "2" in wanted:
+        phase("path 2: model (random weights on the card, video VAE)")
+        t0 = time.time()
+        pipe = random_pipeline(device="cuda", seed=0, vae_config=VIDEO_VAE)
+        torch.cuda.synchronize()
+        log(f"built the pipeline in {time.time() - t0:.1f} s")
+        phase("path 2: unet at T = 5")
+        unet2 = check_unet(pipe, FRAMES2, H2, W2)
+        phase("path 2: e2e, scan against host")
+        paths["path2"] = dict(run_path2(pipe, card, checked), unet=unet2)
+        del pipe
+        torch.cuda.empty_cache()
 
-    phase("path 3: the headline command with -p 24,26,28 (RAFT, propagation, encoder)")
-    path3 = run_path3(card, checked)
-    torch.cuda.empty_cache()
+    if "3" in wanted:
+        phase("path 3: the headline command with -p 24,26,28 (RAFT, propagation, encoder)")
+        paths["path3"] = run_path3(card, checked)
+        torch.cuda.empty_cache()
 
-    phase("path 4: the CLI's per-clip step, two 128x192 tiles batched, -p 24,26,28")
-    path4 = run_path4(card, checked)
-    torch.cuda.empty_cache()
+    if "4" in wanted:
+        phase("path 4: the CLI's per-clip step, two 128x192 tiles batched, -p 24,26,28")
+        paths["path4"] = run_path4(card, checked)
+        torch.cuda.empty_cache()
 
-    paths = {"path1": path1, "path2": path2, "path3": path3, "path4": path4}
+    path5 = None
+    if "5" in wanted:
+        phase("path 5: the captioner (LLaVA-1.5-13B widths, random weights), int8, MPT")
+        path5 = run_path5(card)
+
     by_key = {(r["name"], json.dumps(r["shape"])): r for r in recs}
     for name, p in paths.items():  # fault C1 in one run: the kernels against the plain route
-        per_kernel = p["kernel_seconds"] = kernel_seconds(p["launches_by_shape"], by_key)
+        # one call's launches (paths 1-2: the host call's; each path's count is one loop's)
+        one_run = p.get("loop_launches_by_shape", p["launches_by_shape"])
+        per_kernel = p["kernel_seconds"] = kernel_seconds(one_run, by_key)
         kern, plain = (sum(v[r] for v in per_kernel.values()) for r in ("kernels", "plain"))
         each = ", ".join(f"{k} {v['kernels']:.3f}/{v['plain']:.3f}" for k, v in per_kernel.items())
-        route = (f" against the plain route {p['plain_seconds']:.2f} s"
-                 if "plain_seconds" in p else "")
+        route = (f" (host {p['host_seconds']:.2f} s) against the plain route (host) "
+                 f"{p['plain_seconds']:.2f} s" if "plain_seconds" in p else "")
         log(f"{name}: kernels as isolated calls {kern:.3f} s against their plain versions "
             f"{plain:.3f} s ({each}); e2e {p['seconds']:.2f} s{route}")
     with open("chiprun_out/chip_smoke_kernels.json", "w") as f:
         json.dump({"card": card, "steps": STEPS, "build_seconds": build_secs, "paths": paths,
-                   "kernels": recs}, f, indent=1)
+                   "path5": path5, "kernels": recs}, f, indent=1)
+    if wanted != {"1", "2", "3", "4", "5"}:
+        phase(f"done: paths {sorted(wanted)} only (no result line; records in "
+              f"chiprun_out/chip_smoke_kernels.json), whole script {time.time() - T0:.1f} s")
+        return 0
     main_shape = {}
     for r in recs:  # the largest slice shape of each kernel stands for it
         if r["name"] not in main_shape or r["bound_ms"] > main_shape[r["name"]]["bound_ms"]:

@@ -9,8 +9,11 @@ package's.
   the initial latents and LR noise passed through ``**call_kwargs``: within
   1 level of 255 (float32 rounding through 2 steps, then truncation).
 - ``cli.main`` end to end on a tiny mp4: ``video/<save name>.mp4`` at x4 and
-  PNG frames under the JAX CLI's save name; the refusals (captioner, fp32
-  attention operands on the card, no card).
+  PNG frames under the JAX CLI's save name; the refusals (fp32 attention
+  operands on the card, no card).
+- without ``--no_llava``: an empty caption when no backend is configured
+  (the prompt is ``a_prompt``, as JAX's), else the backend's caption of
+  frame 0 prepended (a stub backend).
 - ``--decode_attn fp32``: the VAE attention with fp32 operands against JAX's
   ``UAV_VAE_ATTN_F32`` (1e-5 of the largest value: float32 attention in
   another order), and bf16 operands against JAX's default.
@@ -122,7 +125,9 @@ def test_cli_main_end_to_end(bundle, tmp_path):
 
 def test_cli_refusals(bundle, tmp_path, monkeypatch):
     base = ["-i", str(tmp_path), "--random_weights", "--model_dir", str(bundle)]
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+    for var in ("UAV_CAPTION_TORCH_MODEL", "UAV_CAPTION_ENDPOINT"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(ValueError, match="invalid input"):  # no captioner refusal any more
         cli.main(base + ["--device", "cpu"])
     with pytest.raises(NotImplementedError, match="ROADMAP B7"):
         cli.main(base + ["--no_llava", "--decode_fp32", "--decode_attn", "fp32"])
@@ -131,6 +136,68 @@ def test_cli_refusals(bundle, tmp_path, monkeypatch):
         cli.main(base + ["--no_llava"])
     with pytest.raises(ValueError, match="invalid input"):
         cli.main(base + ["--no_llava", "--device", "cpu"])
+
+
+class PromptRecorder:
+    """A pipeline whose calls record their prompts."""
+
+    def __init__(self, pipe):
+        object.__setattr__(self, "pipe", pipe)
+        object.__setattr__(self, "prompts", [])
+
+    def __call__(self, prompt, *args, **kwargs):
+        self.prompts.append(prompt)
+        return self.pipe(prompt, *args, **kwargs)
+
+    def __getattr__(self, name):
+        return getattr(self.pipe, name)
+
+    def __setattr__(self, name, value):  # the CLI sets step_mode / window_group
+        setattr(self.pipe, name, value)
+
+
+def test_cli_without_no_llava(bundle, tmp_path, monkeypatch, capsys):
+    """Without ``--no_llava``: with no backend configured the captioner is
+    None and the prompt is ``a_prompt`` alone, as the JAX CLI gives; with a
+    backend its caption of frame 0 is printed and prepended, and
+    ``--load_8bit_llava`` reaches the backend (JAX ``cli.py:144-148,
+    180-184``)."""
+    for var in ("UAV_CAPTION_TORCH_MODEL", "UAV_CAPTION_ENDPOINT", "UAV_CAPTION_JAX_MODEL",
+                "UAV_CAPTION_MODEL"):
+        monkeypatch.delenv(var, raising=False)
+    from upscale_a_video_tpu.captioner import build_captioner as j_build_captioner
+    assert j_build_captioner() is None
+    frames = np.random.default_rng(4).integers(0, 256, (2, 32, 32, 3), dtype=np.uint8)
+    src = str(tmp_path / "in" / "clip.mp4")
+    video_io.write_video(src, frames, fps=8)
+    recorders = []
+    load_models = cli.load_models
+
+    def recording(args, device):
+        pipe, raft = load_models(args, device)
+        recorders.append(PromptRecorder(pipe))
+        return recorders[-1], raft
+
+    monkeypatch.setattr(cli, "load_models", recording)
+    argv = ["-i", src, "-o", str(tmp_path / "out"), "--random_weights", "--device", "cpu",
+            "-s", "1", "--model_dir", str(bundle), "--use_video_vae"]
+    cli.main(argv)
+    a_prompt = cli.build_parser().parse_args([]).a_prompt
+    assert recorders[0].prompts == [a_prompt]
+    assert "Caption:" not in capsys.readouterr().out
+
+    built, seen = [], []
+
+    def build_captioner(load_8bit, device):
+        built.append((load_8bit, device))
+        return lambda frame: seen.append(frame.shape) or "a stub caption, "
+
+    monkeypatch.setattr(cli, "build_captioner", build_captioner)
+    cli.main(argv + ["--load_8bit_llava"])
+    assert recorders[1].prompts == ["a stub caption, " + a_prompt]
+    assert built == [(True, torch.device("cpu"))] and seen == [(32, 32, 3)]
+    assert "Caption: a stub caption," in capsys.readouterr().out
+    assert os.path.exists(tmp_path / "out" / "video" / "clip_n120_g6_s1.mp4")
 
 
 def test_input_list(tmp_path):

@@ -4,7 +4,8 @@ checkout; ``chip_smoke.py`` likewise. The codec libraries cv2, imageio and
 PIL (which the card machine lacks) are imported only inside the functions
 of ``utils/video_io.py`` that use them, never at module level. Importing
 the port needs none of these, and no ``regex`` either: the BPE tokenizer
-imports it only when one is built."""
+imports it only when one is built; nor ``transformers`` or ``safetensors``,
+which the LLaVA loader imports only when it loads."""
 
 import ast
 import os
@@ -62,7 +63,8 @@ def test_codec_rule_reads_function_bodies():
 def test_port_and_chip_smoke_import_with_jax_blocked():
     code = (
         "import sys\n"
-        "for m in ('jax', 'flax', 'upscale_a_video_tpu', 'cv2', 'imageio', 'PIL', 'regex'):\n"
+        "for m in ('jax', 'flax', 'upscale_a_video_tpu', 'cv2', 'imageio', 'PIL', 'regex',\n"
+        "          'transformers', 'safetensors'):\n"
         "    sys.modules[m] = None\n"
         "import upscale_a_video_tpu_torch, upscale_a_video_tpu_torch.pipeline\n"
         "import upscale_a_video_tpu_torch.ops.flash_attention\n"
@@ -83,6 +85,17 @@ def test_port_and_chip_smoke_import_with_jax_blocked():
         "import upscale_a_video_tpu_torch.pipeline.tiling\n"
         "import upscale_a_video_tpu_torch.pipeline.tiled_run\n"
         "import upscale_a_video_tpu_torch.pipeline.vae_tiling\n"
+        "import upscale_a_video_tpu_torch.pipeline.graphs\n"
+        "import upscale_a_video_tpu_torch.models.llava\n"
+        "import upscale_a_video_tpu_torch.models.llava.clip_vision\n"
+        "import upscale_a_video_tpu_torch.models.llava.llama\n"
+        "import upscale_a_video_tpu_torch.models.llava.mpt\n"
+        "import upscale_a_video_tpu_torch.models.llava.llava\n"
+        "import upscale_a_video_tpu_torch.models.llava.conversation\n"
+        "import upscale_a_video_tpu_torch.models.llava.convert\n"
+        "import upscale_a_video_tpu_torch.models.llava.loader\n"
+        "import upscale_a_video_tpu_torch.utils.quant\n"
+        "import upscale_a_video_tpu_torch.captioner\n"
         "import upscale_a_video_tpu_torch.cli\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', "

@@ -41,6 +41,7 @@ class Options:
         self.jax.step_mode = "host"
         self.port = load_pipeline(str(root), use_video_vae=True, dtype=torch.float32,
                                   device="cpu")
+        self.port.step_mode = "host"  # JAX's mode above: a progress tick per step
         self._memo = {}
 
     @staticmethod

@@ -16,7 +16,14 @@ versions of the kernels then). Flags with a port meaning:
   tile call starts from the same seed, as the JAX CLI's one key).
 - ``-p``: RAFT from ``<model_dir>/propagator/raft-things.pth``, random
   weights when the file is absent.
-- without ``--no_llava`` it raises: the captioner is not ported (ROADMAP A6).
+- without ``--no_llava`` the captioner of ``captioner.build_captioner``
+  captions frame 0 and the caption is prepended to ``--a_prompt``; with no
+  backend configured (``UAV_CAPTION_TORCH_MODEL``, ``UAV_CAPTION_ENDPOINT``)
+  the caption is empty, as in the JAX CLI. ``--load_8bit_llava`` stores the
+  local model's large weights in int8.
+- clips over 8 frames run the denoise step by step from the host, one
+  window per UNet call (``step_mode="host"``, ``window_group`` 1, as the
+  JAX CLI); shorter ones as one CUDA graph (``"scan"``).
 The JAX CLI's compile-cache settings have no counterpart.
 """
 
@@ -31,6 +38,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from .captioner import build_captioner
 from .config import resolve_device
 from .models.raft import compute_bidirectional_flows, load_raft
 from .nn.attention import SpatialAttentionBlock
@@ -90,9 +98,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def check_args(args) -> None:
     """Refuse what the port cannot run, before any model is built."""
-    if not args.no_llava:
-        raise NotImplementedError("captioning needs the LLaVA captioner, which the port does "
-                                  "not have yet (ROADMAP A6): pass --no_llava")
     if args.decode_attn == "fp32" and torch.device(args.device).type == "cuda":
         raise NotImplementedError("--decode_attn fp32 on the card needs an fp32-operand variant "
                                   "of the flash kernel (ROADMAP B7); it runs with --device cpu")
@@ -133,10 +138,12 @@ def input_list(path: str) -> List[str]:
     raise ValueError(f"invalid input: {path}")
 
 
-def upscale_clip(pipeline, raft, frames: np.ndarray, args, **call_kwargs) -> torch.Tensor:
+def upscale_clip(pipeline, raft, frames: np.ndarray, args, caption: str = "",
+                 **call_kwargs) -> torch.Tensor:
     """frames (T, H, W, 3) float32 in [-1, 1] → (T, 4H', 4W', 3) fp32 on the
     pipeline's device, H', W' after the area rules (``cli.py:178-247``):
-    flows, the tiled or direct pipeline call, the colour fix."""
+    flows, the tiled or direct pipeline call with the prompt ``caption +
+    a_prompt``, the colour fix."""
     video = torch.as_tensor(frames, device=pipeline.device)
     h, w = video.shape[1:3]
     if h >= 1280 and w >= 1280:  # ref :184-185
@@ -148,7 +155,8 @@ def upscale_clip(pipeline, raft, frames: np.ndarray, args, **call_kwargs) -> tor
         video = resize_2d(video, (nh, nw), "area")
         h, w = video.shape[1:3]
     video = video[None]
-    if video.shape[1] > 8:  # one window per UNet call on long clips (cli.py:209-211)
+    if video.shape[1] > 8:  # step by step, one window per UNet call (cli.py:209-211)
+        pipeline.step_mode = "host"
         pipeline.window_group = 1
 
     flows_bi = None
@@ -159,7 +167,7 @@ def upscale_clip(pipeline, raft, frames: np.ndarray, args, **call_kwargs) -> tor
                   guidance_scale=args.guidance_scale, noise_level=args.noise_level,
                   negative_prompt=args.n_prompt, propagation_steps=args.propagation_steps,
                   w_lr=args.w_lr, **call_kwargs)
-    prompt = args.a_prompt  # no caption: the captioner is not ported
+    prompt = caption + args.a_prompt
     if args.perform_tile or needs_tiling(h, w):
         n_tiles = len(plan_tiles(h, w, args.tile_size, 64))
         print(f"        Processing the video w/ {n_tiles} tile patches...", flush=True)
@@ -172,10 +180,16 @@ def upscale_clip(pipeline, raft, frames: np.ndarray, args, **call_kwargs) -> tor
     return apply_color_fix(args.color_fix, output[0], video[0])
 
 
-def process_clip(pipeline, raft, frames_u8: np.ndarray, args, **call_kwargs) -> np.ndarray:
+def process_clip(pipeline, raft, frames_u8: np.ndarray, args, captioner=None,
+                 **call_kwargs) -> np.ndarray:
     """One clip through the CLI's steps: (T, H, W, 3) uint8 → (T, 4H', 4W',
-    3) uint8 (:func:`upscale_clip` between the native frame conversions)."""
-    output = upscale_clip(pipeline, raft, video_io.to_model_range(frames_u8), args,
+    3) uint8 (the caption of frame 0 when there is a captioner, then
+    :func:`upscale_clip` between the native frame conversions)."""
+    caption = ""
+    if captioner is not None:  # JAX cli.py:180-184
+        caption = captioner(frames_u8[0])
+        print(f"        Caption: {caption}", flush=True)
+    output = upscale_clip(pipeline, raft, video_io.to_model_range(frames_u8), args, caption,
                           **call_kwargs)
     return video_io.from_model_range(output.cpu().numpy())
 
@@ -205,6 +219,7 @@ def run(args) -> None:
     device = resolve_device(args.device)
     print("Loading Upscale-A-Video (PyTorch port)", flush=True)
     pipeline, raft = load_models(args, device)
+    captioner = None if args.no_llava else build_captioner(args.load_8bit_llava, device)
     videos = input_list(args.input_path)
     # decode lookahead: clip k+1 is read on a host thread while the card runs clip k
     with ThreadPoolExecutor(max_workers=1) as reader:
@@ -218,7 +233,7 @@ def run(args) -> None:
             tag = f"[{vi + 1}/{len(videos)}]"
             print(f"{tag} Processing video: {name}", flush=True)
             start = time.time()
-            out_u8 = process_clip(pipeline, raft, frames_u8, args)
+            out_u8 = process_clip(pipeline, raft, frames_u8, args, captioner)
             run_time = time.time() - start
             write_results(args, name, out_u8, fps)
             print(f"{tag} Saved. time (sec): {run_time:.2f}\n", flush=True)

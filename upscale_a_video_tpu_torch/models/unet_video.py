@@ -19,6 +19,15 @@ from ..nn.unet_blocks import (CrossAttnDownBlock3D, CrossAttnUpBlock3D, DownBloc
 from ..ops.embeddings import get_timestep_embedding
 
 
+def _per_row(v, b: int, device) -> torch.Tensor:
+    """A scalar or (B,) timestep or label as a (B,) tensor on ``device``; a
+    Python number by a fill, not a host-to-device copy, which a CUDA graph
+    capture of the denoise loop would refuse."""
+    if torch.is_tensor(v):
+        return v.to(device).reshape(-1).expand(b)
+    return torch.full((b,), v, device=device)
+
+
 class UNetVideoModel(nn.Module):
     def __init__(self, config: UNetVideoConfig = UNetVideoConfig()):
         super().__init__()
@@ -85,13 +94,54 @@ class UNetVideoModel(nn.Module):
         self.conv_norm_out = GroupNorm(cfg.norm_num_groups, boc[0], cfg.norm_eps)
         self.conv_out = InflatedConv(boc[0], cfg.out_channels, 3, padding=1)
 
+    def make_pab_collect_cache(self, skip=(), kinds=None):
+        """The empty cache structure for Pyramid Attention Broadcast (JAX
+        ``models/unet_video.py:52-100``): passed as ``attn_cache``, the
+        forward computes and returns the attention deltas of every
+        transformer block. Levels named in ``skip`` (``down_i``, ``mid``,
+        ``up_i``) are left out and recompute every step. ``kinds`` (a subset
+        of cross, spatial, temporal) restricts what is cached: each block
+        gets a marker dict of its cacheable entries (``()`` each); ``None``
+        gives ``{}``, which caches every entry."""
+        cfg = self.config
+
+        def block_marker(only_cross: bool):
+            if kinds is None:
+                return {}
+            marker = {}
+            if ("cross" if only_cross else "spatial") in kinds:
+                marker["attn1"] = ()
+            if "cross" in kinds:
+                marker["attn2"] = ()
+            if "temporal" in kinds:
+                marker["attn_temporal"] = ()
+            return marker
+
+        skip = set(skip)
+        cache = {}
+        for i, kind in enumerate(cfg.down_block_types):
+            if kind == "CrossAttnDownBlock3D" and f"down_{i}" not in skip:
+                cache[f"down_{i}"] = tuple((block_marker(cfg.only_cross_attention[i]),)
+                                           for _ in range(cfg.layers_per_block))
+        if "mid" not in skip:
+            cache["mid"] = ((block_marker(False),),)
+        only_cross_up = list(reversed(cfg.only_cross_attention))
+        for i, kind in enumerate(cfg.up_block_types):
+            if kind == "CrossAttnUpBlock3D" and f"up_{i}" not in skip:
+                cache[f"up_{i}"] = tuple((block_marker(only_cross_up[i]),)
+                                         for _ in range(cfg.layers_per_block + 1))
+        return cache
+
     def forward(self, sample, timestep, low_res, encoder_hidden_states, class_labels,
-                cfg_dup: bool = False):
+                attn_cache=None, use_flags=None, cfg_dup: bool = False):
         """sample (B, T, H, W, 4), low_res (B, T, H, W, 3), encoder_hidden_states
         (B', S, C_txt). With ``cfg_dup`` the caller passes sample/low_res at
         batch n and the context at 2n as [uncond, cond]: the text-free prefix
         runs once and is duplicated before the first text-consuming block
-        (exactly as the reference's ``cfg_dup``). Returns (B', T, H, W, 4)."""
+        (exactly as the reference's ``cfg_dup``). Returns (B', T, H, W, 4);
+        with ``attn_cache`` (:meth:`make_pab_collect_cache`, or the caches a
+        previous call returned) and ``use_flags`` ({cross, spatial, temporal}:
+        bool), (output, new caches) as JAX's ``:105-330``."""
         cfg = self.config
         dt = self.conv_in.weight.dtype
         x = torch.cat([sample, low_res], dim=-1).to(dt)
@@ -101,14 +151,15 @@ class UNetVideoModel(nn.Module):
         tiled = not cfg_dup
         dup = lambda v: torch.cat([v, v], dim=0)
 
-        ts = torch.as_tensor(timestep, device=x.device).reshape(-1).expand(b)
+        ts = _per_row(timestep, b, x.device)
         emb = self.time_embedding(
             get_timestep_embedding(ts, cfg.block_out_channels[0], cfg.flip_sin_to_cos,
                                    cfg.freq_shift).to(dt))
         if self.class_embedding is not None:
-            labels = torch.as_tensor(class_labels, device=x.device).reshape(-1).expand(b)
+            labels = _per_row(class_labels, b, x.device)
             emb = emb + self.class_embedding(labels.long())
         ctx = encoder_hidden_states.to(dt)
+        new_cache = {}
 
         x = self.conv_in(x)
         res = (x,)
@@ -116,7 +167,11 @@ class UNetVideoModel(nn.Module):
             if isinstance(block, CrossAttnDownBlock3D):
                 if not tiled:
                     x, emb, res, tiled = dup(x), dup(emb), tuple(dup(r) for r in res), True
-                x, states = block(x, emb, ctx)
+                if attn_cache is not None and f"down_{i}" in attn_cache:
+                    x, states, new_cache[f"down_{i}"] = block(x, emb, ctx, attn_cache[f"down_{i}"],
+                                                              use_flags)
+                else:
+                    x, states = block(x, emb, ctx)
             else:
                 x, states = block(x, emb)
             res += states
@@ -125,7 +180,10 @@ class UNetVideoModel(nn.Module):
 
         if not tiled:
             x, emb, res = dup(x), dup(emb), tuple(dup(r) for r in res)
-        x = self.mid_block(x, emb, ctx)
+        if attn_cache is not None and "mid" in attn_cache:
+            x, new_cache["mid"] = self.mid_block(x, emb, ctx, attn_cache["mid"], use_flags)
+        else:
+            x = self.mid_block(x, emb, ctx)
         if self.mid_temp_block is not None:
             x = self.mid_temp_block(x, emb)
 
@@ -134,12 +192,16 @@ class UNetVideoModel(nn.Module):
             k = len(block.resnets)
             states, res = res[-k:], res[:-k]
             size = tuple(res[-1].shape[2:4]) if i != n - 1 and res else None
-            if isinstance(block, CrossAttnUpBlock3D):
+            if isinstance(block, CrossAttnUpBlock3D) and attn_cache is not None \
+                    and f"up_{i}" in attn_cache:
+                x, new_cache[f"up_{i}"] = block(x, states, emb, ctx, size, attn_cache[f"up_{i}"],
+                                                use_flags)
+            elif isinstance(block, CrossAttnUpBlock3D):
                 x = block(x, states, emb, ctx, size)
             else:
                 x = block(x, states, emb, size)
             if str(i) in self.up_temp_blocks:
                 x = self.up_temp_blocks[str(i)](x, emb)
 
-        x = F.silu(self.conv_norm_out(x))
-        return self.conv_out(x)
+        x = self.conv_out(F.silu(self.conv_norm_out(x)))
+        return x if attn_cache is None else (x, new_cache)

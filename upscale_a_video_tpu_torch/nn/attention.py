@@ -148,7 +148,17 @@ class FeedForward(nn.Module):
 
 class BasicTransformerBlock(nn.Module):
     """attn1 (self or text cross) → attn2 (text cross) → temporal attention
-    → GEGLU FF, each with its residual (ref attention.py:414-564)."""
+    → GEGLU FF, each with its residual (ref attention.py:414-564).
+
+    Pyramid Attention Broadcast (JAX ``nn/attention.py:358-565``): given an
+    ``attn_cache`` dict, the block returns ``(x, new_cache)`` whose entries
+    (``attn1``, ``attn2``, ``attn_temporal``) are the attention deltas, the
+    outputs after the projection and before the residual add; where
+    ``use_flags`` sets the entry's kind and a delta is cached, that delta is
+    reused and the attention is not computed. The fused kernels then return
+    the delta (``add_residual=False``) and the add runs outside; the
+    feed-forward keeps its fused residual. ``{}`` caches every entry; a
+    marker dict caches only its keys."""
 
     def __init__(self, dim: int, heads: int, dim_head: int,
                  cross_attention_dim: Optional[int] = None, only_cross_attention: bool = False):
@@ -168,40 +178,82 @@ class BasicTransformerBlock(nn.Module):
         self.norm3 = LayerNorm(dim, eps=1e-5)
         self.ff = FeedForward(dim)
 
-    def _cross(self, norm, attn, x, context, video_length):
-        """x + attn(norm(x), context); ``context`` is per clip (B, S, C)."""
+    def _cross(self, norm, attn, x, context, video_length, add_residual=True):
+        """attn(norm(x), context), plus x with ``add_residual``; ``context``
+        is per clip (B, S, C)."""
         if _cuda.route(x, cross_attention_block_fits(x, context.shape[1], self.heads,
                                                      self.dim_head)):
             return fused_cross_attention_block(
                 x, norm.weight, norm.bias, attn.to_q.weight, attn.to_k(context),
                 attn.to_v(context), attn.to_out[0].weight, attn.to_out[0].bias,
                 heads=self.heads, dim_head=self.dim_head, t_repeat=video_length,
-                eps=norm.eps, add_residual=True)
-        ctx = context.repeat_interleave(video_length, dim=0)
-        return attn(norm(x), ctx) + x
+                eps=norm.eps, add_residual=add_residual)
+        delta = attn(norm(x), context.repeat_interleave(video_length, dim=0))
+        return delta + x if add_residual else delta
 
-    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor], video_length: int):
-        """x: (B·T, S, C) per-frame tokens; context: (B, S_txt, C_txt)."""
-        if self.only_cross_attention:
-            x = self._cross(self.norm1, self.attn1, x, context, video_length)
-        else:
-            x = self.attn1(self.norm1(x)) + x
-        if self.attn2 is not None:
-            x = self._cross(self.norm2, self.attn2, x, context, video_length)
-
+    def _temporal(self, x, video_length, add_residual=True):
+        """The temporal attention's delta in the (B·T, S, C) layout, plus x
+        with ``add_residual``."""
         at, nt = self.attn_temporal, self.norm_temporal
         if _cuda.route(x, temporal_attention_block_fits(x, video_length, self.heads, at.rope_dim)):
-            x = fused_temporal_attention_block(
+            return fused_temporal_attention_block(
                 x, nt.weight, nt.bias, at.to_q.weight, at.to_k.weight, at.to_v.weight,
                 at.to_out[0].weight, at.to_out[0].bias, at.time_rel_pos_bias(video_length),
-                video_length=video_length, rot_dim=at.rope_dim, eps=nt.eps, add_residual=True)
-        else:
-            bt, s, c = x.shape
-            b = bt // video_length
-            xt = x.reshape(b, video_length, s, c).transpose(1, 2).reshape(b * s, video_length, c)
-            xt = at(nt(xt)) + xt
-            x = xt.reshape(b, s, video_length, c).transpose(1, 2).reshape(bt, s, c)
+                video_length=video_length, rot_dim=at.rope_dim, eps=nt.eps,
+                add_residual=add_residual)
+        bt, s, c = x.shape
+        b = bt // video_length
+        xt = x.reshape(b, video_length, s, c).transpose(1, 2).reshape(b * s, video_length, c)
+        out = at(nt(xt))
+        if add_residual:
+            out = out + xt
+        return out.reshape(b, s, video_length, c).transpose(1, 2).reshape(bt, s, c)
 
+    @staticmethod
+    def _cached(compute, cache, flag: bool) -> torch.Tensor:
+        """The cached delta when ``flag`` is set and a delta is cached (a
+        marker, ``()``, or no entry means "compute"), else ``compute()``: a
+        Python branch where JAX takes ``lax.cond``."""
+        if flag and isinstance(cache, torch.Tensor):
+            return cache
+        return compute()
+
+    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor], video_length: int,
+                attn_cache: Optional[dict] = None, use_flags: Optional[dict] = None):
+        """x: (B·T, S, C) per-frame tokens; context: (B, S_txt, C_txt).
+        Returns x, or (x, new_cache) when ``attn_cache`` is given."""
+        if attn_cache is None:
+            if self.only_cross_attention:
+                x = self._cross(self.norm1, self.attn1, x, context, video_length)
+            else:
+                x = self.attn1(self.norm1(x)) + x
+            if self.attn2 is not None:
+                x = self._cross(self.norm2, self.attn2, x, context, video_length)
+            x = self._temporal(x, video_length)
+            return self._feedforward(x)
+
+        flags = use_flags or {}
+        new_cache = {}
+
+        def attend(key, kind, compute):
+            delta = self._cached(compute, attn_cache.get(key), flags.get(kind, False))
+            if not attn_cache or key in attn_cache:  # {} keeps every entry
+                new_cache[key] = delta
+            return delta
+
+        if self.only_cross_attention:
+            x = attend("attn1", "cross", lambda: self._cross(
+                self.norm1, self.attn1, x, context, video_length, add_residual=False)) + x
+        else:
+            x = attend("attn1", "spatial", lambda: self.attn1(self.norm1(x))) + x
+        if self.attn2 is not None:
+            x = attend("attn2", "cross", lambda: self._cross(
+                self.norm2, self.attn2, x, context, video_length, add_residual=False)) + x
+        x = attend("attn_temporal", "temporal",
+                   lambda: self._temporal(x, video_length, add_residual=False)) + x
+        return self._feedforward(x), new_cache
+
+    def _feedforward(self, x):
         n3, ff = self.norm3, self.ff
         if _cuda.route(x, feedforward_fits(x)):
             return fused_feedforward(x, n3.weight, n3.bias, ff.net[0].proj.weight,
@@ -229,16 +281,24 @@ class Transformer3DModel(nn.Module):
                                   only_cross_attention) for _ in range(num_layers)])
         self.proj_out = nn.Linear(inner, in_channels)
 
-    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor]) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor], attn_cache=None,
+                use_flags=None):
+        """Returns the output, or (output, caches) with ``attn_cache``, one
+        entry per transformer block (:class:`BasicTransformerBlock`)."""
         x = self.resblock_temporal(x)
         b, t, hh, ww, c = x.shape
         residual = x.reshape(b * t, hh * ww, c)
         # per-frame GroupNorm: the statistics exclude T (ref attention.py:363,374)
         tokens = self.proj_in(self.norm(x.reshape(b * t, hh, ww, c)).reshape(b * t, hh * ww, c))
-        for block in self.transformer_blocks:
-            tokens = block(tokens, context, video_length=t)
-        tokens = self.proj_out(tokens) + residual
-        return tokens.reshape(b, t, hh, ww, c)
+        caches = []
+        for i, block in enumerate(self.transformer_blocks):
+            if attn_cache is None:
+                tokens = block(tokens, context, video_length=t)
+            else:
+                tokens, cache = block(tokens, context, t, attn_cache[i], use_flags)
+                caches.append(cache)
+        out = (self.proj_out(tokens) + residual).reshape(b, t, hh, ww, c)
+        return out if attn_cache is None else (out, tuple(caches))
 
 
 class SpatialAttentionBlock(nn.Module):

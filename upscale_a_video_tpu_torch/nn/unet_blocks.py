@@ -1,5 +1,8 @@
 """UNet down/mid/up blocks and the VAE's encoder, mid and decoder blocks
-(mirror of ``upscale_a_video_tpu/nn/unet_blocks.py``)."""
+(mirror of ``upscale_a_video_tpu/nn/unet_blocks.py``). The cross-attention
+blocks take the Pyramid Attention Broadcast caches as JAX does
+(``attn_caches``: one entry per attention, ``use_flags``) and then also
+return the new caches."""
 
 from __future__ import annotations
 
@@ -10,6 +13,16 @@ import torch.nn as nn
 
 from .attention import SpatialAttentionBlock, Transformer3DModel
 from .blocks import Downsample3D, ResnetBlock3D, ResnetBlock3DPlus, Upsample3D
+
+
+def _attend(attn, x, context, attn_caches, i, use_flags, caches):
+    """``attn(x, context)``; with caches, the i-th cache in and its new one
+    appended to ``caches``."""
+    if attn_caches is None:
+        return attn(x, context)
+    x, cache = attn(x, context, attn_caches[i], use_flags)
+    caches.append(cache)
+    return x
 
 
 class CrossAttnDownBlock3D(nn.Module):
@@ -29,15 +42,15 @@ class CrossAttnDownBlock3D(nn.Module):
         self.downsamplers = (nn.ModuleList([Downsample3D(out_channels)])
                              if add_downsample else None)
 
-    def forward(self, x, temb, context):
-        states = ()
-        for resnet, attn in zip(self.resnets, self.attentions):
-            x = attn(resnet(x, temb), context)
+    def forward(self, x, temb, context, attn_caches=None, use_flags=None):
+        states, caches = (), []
+        for i, (resnet, attn) in enumerate(zip(self.resnets, self.attentions)):
+            x = _attend(attn, resnet(x, temb), context, attn_caches, i, use_flags, caches)
             states += (x,)
         if self.downsamplers is not None:
             x = self.downsamplers[0](x)
             states += (x,)
-        return x, states
+        return (x, states) if attn_caches is None else (x, states, tuple(caches))
 
 
 class DownBlock3D(nn.Module):
@@ -73,11 +86,11 @@ class UNetMidBlock3DCrossAttn(nn.Module):
                                in_channels, cross_attention_dim=cross_attention_dim,
                                norm_num_groups=resnet_groups) for _ in range(num_layers)])
 
-    def forward(self, x, temb, context):
-        x = self.resnets[0](x, temb)
-        for attn, resnet in zip(self.attentions, self.resnets[1:]):
-            x = resnet(attn(x, context), temb)
-        return x
+    def forward(self, x, temb, context, attn_caches=None, use_flags=None):
+        x, caches = self.resnets[0](x, temb), []
+        for i, (attn, resnet) in enumerate(zip(self.attentions, self.resnets[1:])):
+            x = resnet(_attend(attn, x, context, attn_caches, i, use_flags, caches), temb)
+        return x if attn_caches is None else (x, tuple(caches))
 
 
 class _UpBlock(nn.Module):
@@ -107,14 +120,16 @@ class CrossAttnUpBlock3D(_UpBlock):
             for _ in range(num_layers)])
 
     def forward(self, x, res_states: Tuple[torch.Tensor, ...], temb, context,
-                upsample_size: Optional[Tuple[int, int]] = None):
-        for resnet, attn in zip(self.resnets, self.attentions):
+                upsample_size: Optional[Tuple[int, int]] = None, attn_caches=None,
+                use_flags=None):
+        caches = []
+        for i, (resnet, attn) in enumerate(zip(self.resnets, self.attentions)):
             x = torch.cat([x, res_states[-1]], dim=-1)
             res_states = res_states[:-1]
-            x = attn(resnet(x, temb), context)
+            x = _attend(attn, resnet(x, temb), context, attn_caches, i, use_flags, caches)
         if self.upsamplers is not None:
             x = self.upsamplers[0](x, upsample_size)
-        return x
+        return x if attn_caches is None else (x, tuple(caches))
 
 
 class UpBlock3D(_UpBlock):

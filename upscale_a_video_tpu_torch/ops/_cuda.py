@@ -241,6 +241,11 @@ def plain_path():
         _enabled = prev
 
 
+def kernels_enabled() -> bool:
+    """False inside :func:`plain_path` (a captured loop's key carries it)."""
+    return _enabled
+
+
 def use_kernel(x: torch.Tensor) -> bool:
     """A CUDA tensor goes to a kernel unless the plain path was asked for."""
     return x.is_cuda and _enabled

@@ -115,5 +115,5 @@ def fused_cross_attention_block(x, ln_w, ln_b, wq, k, v, wo, bo, *, heads: int, 
         bof.data_ptr(), out.data_ptr(), bt, s, c, heads, skv, t_repeat, float(eps),
         int(add_residual), _cuda.stream_ptr(x.device))
     _cuda.check(rc, "cross_attention_block")
-    _cuda.count("cross_attention_block", (bt, s, c, t_repeat))
+    _cuda.count("cross_attention_block", (bt, s, c, t_repeat, int(add_residual)))
     return out

@@ -98,6 +98,15 @@ def weight_matrix(out_size: int, in_size: int, method: str = "bicubic",
     raise ValueError(f"unknown resize method {method!r}")
 
 
+@functools.lru_cache(maxsize=64)
+def _device_matrix(out_size: int, in_size: int, method: str, align_corners: bool,
+                   device: torch.device) -> torch.Tensor:
+    """:func:`weight_matrix` on ``device``, copied there once: a resize
+    inside the captured denoise loop (the propagation's flow resize) must
+    not copy from the host."""
+    return torch.as_tensor(weight_matrix(out_size, in_size, method, align_corners), device=device)
+
+
 def resize_2d(x: torch.Tensor, out_hw: Tuple[int, int], method: str = "bicubic",
               align_corners: bool = False) -> torch.Tensor:
     """Resize the (-3, -2) spatial axes of a channels-last tensor:
@@ -106,8 +115,8 @@ def resize_2d(x: torch.Tensor, out_hw: Tuple[int, int], method: str = "bicubic",
     oh, ow = out_hw
     if (oh, ow) == (h, w) and method != "area":
         return x
-    wh = torch.as_tensor(weight_matrix(oh, h, method, align_corners), device=x.device)
-    ww = torch.as_tensor(weight_matrix(ow, w, method, align_corners), device=x.device)
+    wh = _device_matrix(oh, h, method, align_corners, x.device)
+    ww = _device_matrix(ow, w, method, align_corners, x.device)
     y = torch.einsum("Hh,...hwc->...Hwc", wh, x.float())
     y = torch.einsum("Ww,...hwc->...hWc", ww, y)
     return y.to(x.dtype)

@@ -112,5 +112,5 @@ def fused_temporal_attention_block(x, ln_w, ln_b, wq, wk, wv, wo, bo, bias_htt, 
         o.data_ptr(), out.data_ptr(), bt // t, t, s, c, heads, rot, float(eps),
         int(add_residual), _cuda.stream_ptr(x.device))
     _cuda.check(rc, "temporal_attention_block")
-    _cuda.count("temporal_attention_block", (bt, s, c, t))
+    _cuda.count("temporal_attention_block", (bt, s, c, t, int(add_residual)))
     return out

@@ -3,20 +3,25 @@ DDIM denoise with the split step → chunked VAE decode (conditioned on the
 fp32 LR frames with weight ``w_lr`` when the VAE is the video VAE).
 
 Mirror of ``upscale_a_video_tpu/pipeline/pipeline.py`` (``__call__`` at
-``:497-597``, same argument order) without its TPU execution machinery: the
-steps are a Python loop (the JAX ``step_mode="host"``), each step runs the
-UNet on the unique 8-frame windows, all in one call or ``window_group`` at a
-time (CFG rows share the text-free prefix, ``cfg_dup``), blends them with
-the window matrix and takes ``step_v0``, then, at the step indices in
+``:497-597``, same argument order). Each denoise step runs the UNet on the
+unique 8-frame windows, all in one call or ``window_group`` at a time (CFG
+rows share the text-free prefix, ``cfg_dup``), blends them with the window
+matrix and takes ``step_v0``, then, at the step indices in
 ``propagation_steps`` when bidirectional flows are given, propagates x̂0
-along them (``-p``, ref ``:330-339``), then takes ``step_vt``. The ``latents`` and ``lr_noise``
-arguments let a caller hand both frameworks identical noise.
+along them (``-p``, ref ``:330-339``), then takes ``step_vt``. With a
+:class:`PABConfig` the attention deltas are broadcast across steps.
+``step_mode`` as in JAX: ``"host"`` issues each step from the host with a
+progress tick per step; ``"scan"`` (the default) runs the whole loop as one
+CUDA graph on the card once its key comes back (``graphs.py``; a key's
+first call runs eagerly) and eagerly on the CPU, with one tick at the end. The ``latents`` and ``lr_noise`` arguments let a caller
+hand both frameworks identical noise.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 from typing import Any, Optional, Sequence, Tuple
 
 import numpy as np
@@ -29,7 +34,48 @@ from ..models.raft import RaftRunner
 from ..ops import _cuda
 from ..sampling import DDIMScheduler, DDIMSchedulerConfig, DDPMScheduler
 from ..weights import init_random_
+from .graphs import LoopGraphs, weights_stamp
 from .windows import chunk_starts, unique_window_plan
+
+
+@dataclasses.dataclass(frozen=True)
+class PABConfig:
+    """Pyramid Attention Broadcast (JAX ``pipeline/pipeline.py:40-80``):
+    reuse attention deltas across denoise steps. ``*_range`` = recompute
+    every N steps inside [start_step, end_step); outside that window
+    everything is computed. ``skip_levels`` names UNet levels whose blocks
+    recompute every step; ``kinds`` the attention kinds that are cached."""
+
+    cross_range: int = 6
+    spatial_range: int = 2
+    temporal_range: int = 4
+    start_step: int = 2
+    end_step: int = 10**9
+    skip_levels: Tuple[str, ...] = ()
+    kinds: Tuple[str, ...] = ("spatial", "cross", "temporal")
+
+    def use_cached_flags(self, num_steps: int):
+        """(steps,) bool arrays per attention kind: True = reuse the cache."""
+        steps = np.arange(num_steps)
+        inside = (steps >= self.start_step) & (steps < self.end_step)
+
+        def sched(rng):
+            if rng <= 1:
+                return np.zeros(num_steps, dtype=bool)
+            recompute = (steps - self.start_step) % rng == 0
+            return inside & ~recompute
+
+        return {"cross": sched(self.cross_range), "spatial": sched(self.spatial_range),
+                "temporal": sched(self.temporal_range)}
+
+
+@functools.lru_cache(maxsize=16)
+def _window_tensors(t: int, window: int, stride: int, device: torch.device):
+    """The unique windows' frame indices (N, win) and the blend matrix on
+    ``device``, copied there once per clip length (not inside the loop)."""
+    ustarts, blend = unique_window_plan(t, window, stride)
+    idx = np.asarray(ustarts)[:, None] + np.arange(min(window, t))[None, :]
+    return torch.as_tensor(idx, device=device), torch.as_tensor(blend, device=device)
 
 
 @dataclasses.dataclass
@@ -62,9 +108,15 @@ class VideoUpscalePipeline:
     WINDOW, STRIDE = 8, 6  # UNet frame windows (ref :601-635)
     DECODE_CHUNK = 3       # frames per VAE decode (ref :685-700)
 
-    def __init__(self, modules: PipelineModules, device=None):
+    def __init__(self, modules: PipelineModules, device=None, pab: Optional[PABConfig] = None,
+                 step_mode: str = "scan"):
+        if step_mode not in ("scan", "host"):
+            raise ValueError(f"step_mode must be 'scan' or 'host', got {step_mode!r}")
         self.m = modules
         self.device = resolve_device(device)
+        self.pab = pab
+        self.step_mode = step_mode
+        self.graphs = LoopGraphs()  # "scan" on the card: the captured loop
         # 0 runs every unique window in one UNet call; G > 0 runs them G at a
         # time when G divides their count and is smaller (else in one call,
         # as the JAX pipeline decides). The CLI sets 1 for clips over 8 frames.
@@ -86,9 +138,9 @@ class VideoUpscalePipeline:
         for module in (self.m.unet, self.m.vae):
             self._move(module, torch.device("cpu") if enabled else self.device)
 
-    @staticmethod
-    def _move(module: torch.nn.Module, device: torch.device) -> None:
+    def _move(self, module: torch.nn.Module, device: torch.device) -> None:
         _cuda.drop_cached(module)  # kernel operands made from the weights stay behind otherwise
+        self.graphs.clear()  # a graph would read the old storage
         module.to(device)
 
     @contextlib.contextmanager
@@ -124,19 +176,18 @@ class VideoUpscalePipeline:
 
     # ---------------------------------------------------------- denoise
     @torch.no_grad()
-    def unet_on_windows(self, lat, image_noised, tstep, prompt_embeds, level, do_cfg):
+    def unet_on_windows(self, lat, image_noised, tstep, prompt_embeds, level, do_cfg,
+                        attn_cache=None, use_flags=None):
         """lat/image_noised: (B, T, h, w, C) → blended noise prediction
-        (2B if do_cfg else B, T, h, w, 4), fp32."""
+        (2B if do_cfg else B, T, h, w, 4), fp32; with ``attn_cache`` (PAB,
+        every window in one call), also the UNet's new caches."""
         bc, t, h, w, _ = lat.shape
         rows = 2 * bc if do_cfg else bc
-        ustarts, blend = unique_window_plan(t, self.WINDOW, self.STRIDE)
-        win = min(self.WINDOW, t)
-        n = len(ustarts)
+        idx, blend_t = _window_tensors(t, self.WINDOW, self.STRIDE, lat.device)
+        n, win = idx.shape
         group = self.window_group if self.window_group > 0 else n
         if not (n % group == 0 and n > group):
             group = n
-        idx = torch.as_tensor(np.asarray(ustarts)[:, None] + np.arange(win)[None, :],
-                              device=lat.device)
         if do_cfg:  # [uncond x (group·bc), cond x (group·bc)], cfg_dup's duplication order
             u, c = prompt_embeds.chunk(2, dim=0)
             emb = torch.cat([u.repeat(group, 1, 1), c.repeat(group, 1, 1)])
@@ -148,12 +199,52 @@ class VideoUpscalePipeline:
             gather = lambda v: v[:, idx[g0:g0 + group]].transpose(0, 1).reshape(
                 group * bc, win, h, w, v.shape[-1])
             out = self.m.unet(gather(lat), tstep, gather(image_noised), emb,
-                              level.repeat(group), cfg_dup=do_cfg).float()
+                              level.repeat(group), attn_cache, use_flags, cfg_dup=do_cfg)
+            if attn_cache is not None:
+                out, attn_cache = out
+            out = out.float()
             if do_cfg:  # (2, group, bc, ...) halves → per window [uncond bc, cond bc]
                 out = out.reshape(2, group, bc, win, h, w, -1).transpose(0, 1)
             outs.append(out.reshape(group, rows, win, h, w, -1))
-        blend_t = torch.as_tensor(blend, device=lat.device)
-        return torch.einsum("nkt,nbkhwc->bthwc", blend_t, torch.cat(outs))
+        pred = torch.einsum("nkt,nbkhwc->bthwc", blend_t, torch.cat(outs))
+        return pred if attn_cache is None else (pred, attn_cache)
+
+    @torch.no_grad()
+    def denoise(self, lat, image_noised, prompt_embeds, level, flows_f, flows_b, *,
+                num_inference_steps: int, guidance_scale: float, propagation_steps=(),
+                tick=None) -> torch.Tensor:
+        """The DDIM loop (JAX ``make_body``, ``:327-364``) from the scaled
+        initial latents ``lat``: ``propagation_steps`` propagate x̂0 along
+        ``flows_f``/``flows_b``, ``self.pab`` broadcasts the attention
+        deltas on its steps, and ``tick(i)`` runs after step i. Every choice
+        of a step is made on the host, so the whole loop can be captured."""
+        sched = self.m.scheduler
+        do_cfg = guidance_scale > 1.0
+        flags, cache = {}, None
+        if self.pab is not None:
+            flags = self.pab.use_cached_flags(num_inference_steps)
+            kinds = None if set(self.pab.kinds) == {"spatial", "cross", "temporal"} \
+                else self.pab.kinds
+            cache = self.m.unet.make_pab_collect_cache(self.pab.skip_levels, kinds)
+        for i, tstep in enumerate(sched.timesteps(num_inference_steps)):
+            tstep = int(tstep)
+            if cache is None:
+                pred = self.unet_on_windows(lat, image_noised, tstep, prompt_embeds, level,
+                                            do_cfg)
+            else:
+                pred, cache = self.unet_on_windows(
+                    lat, image_noised, tstep, prompt_embeds, level, do_cfg, cache,
+                    {kind: bool(f[i]) for kind, f in flags.items()})
+            if do_cfg:
+                uncond, cond = pred.chunk(2, dim=0)
+                pred = uncond + guidance_scale * (cond - uncond)
+            x0 = sched.step_v0(pred, tstep, lat)
+            if i in propagation_steps:
+                x0 = propagate_latents(x0, flows_f, flows_b)
+            lat = sched.step_vt(x0, pred, tstep, lat, num_inference_steps)
+            if tick is not None:
+                tick(i)
+        return lat
 
     # ----------------------------------------------------------- decode
     @torch.no_grad()
@@ -210,6 +301,8 @@ class VideoUpscalePipeline:
         after each denoise step and each decode chunk, once the card has
         finished it."""
         self.check_inputs(prompt, image, noise_level, negative_prompt)
+        if self.pab is not None and self.window_group:
+            raise ValueError("PAB requires the single batched-window path (window_group=0)")
         prompt = [prompt] if isinstance(prompt, str) else prompt
         if isinstance(negative_prompt, str):
             negative_prompt = [negative_prompt]
@@ -239,23 +332,25 @@ class VideoUpscalePipeline:
         prop = set(propagation_steps) if flows_bi is not None else set()  # ref :556-561
         if prop:
             flows_f, flows_b = (torch.as_tensor(f, device=dev).float() for f in flows_bi)
-        propagated = []
-        sched = self.m.scheduler
+        else:  # never read; the loop's inputs keep one signature
+            flows_f = flows_b = torch.zeros((b, max(t - 1, 1), 1, 1, 2), device=dev)
+        n = num_inference_steps
+        run = functools.partial(self.denoise, num_inference_steps=n,
+                                guidance_scale=guidance_scale, propagation_steps=frozenset(prop))
+        inputs = (lat, image_noised, prompt_embeds, level, flows_f, flows_b)
         with self._stage(self.m.unet):
-            for i, tstep in enumerate(sched.timesteps(num_inference_steps)):
-                tstep = int(tstep)
-                pred = self.unet_on_windows(lat, image_noised, tstep, prompt_embeds, level,
-                                            do_cfg)
-                if do_cfg:
-                    uncond, cond = pred.chunk(2, dim=0)
-                    pred = uncond + guidance_scale * (cond - uncond)
-                x0 = sched.step_v0(pred, tstep, lat)
-                if i in prop:
-                    x0 = propagate_latents(x0, flows_f, flows_b)
-                    propagated.append(i)
-                lat = sched.step_vt(x0, pred, tstep, lat, num_inference_steps)
-                self._tick(progress_cb, "denoise", i + 1, num_inference_steps)
-        self.propagated_steps = tuple(propagated)
+            if self.step_mode == "host":
+                lat = run(*inputs, tick=lambda i: self._tick(progress_cb, "denoise", i + 1, n))
+            else:
+                if dev.type == "cuda":  # the whole loop, one graph (JAX :565-570's key)
+                    key = ((b, t, h, w), n, do_cfg, float(guidance_scale),
+                           tuple(i in prop for i in range(n)), tuple(flows_f.shape),
+                           self.window_group, self.pab, _cuda.kernels_enabled())
+                    lat = self.graphs.run(key, weights_stamp(self.m.unet), run, inputs)
+                else:
+                    lat = run(*inputs)
+                self._tick(progress_cb, "denoise", n, n)
+        self.propagated_steps = tuple(i for i in range(n) if i in prop)
         images = self.decode_latents(lat, image_dec, w_lr, progress_cb)
         return (images, lat) if return_latents else images
 

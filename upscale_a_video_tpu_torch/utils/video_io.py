@@ -9,6 +9,7 @@ them (the card machine); only these functions need one.
 
 from __future__ import annotations
 
+import io
 import os
 from pathlib import Path
 from typing import Iterator, List, Tuple
@@ -133,6 +134,23 @@ def write_frames(folder: str, frames_u8: np.ndarray) -> None:
         for i, frame in enumerate(frames_u8):
             cv2.imwrite(os.path.join(folder, f"{i:04d}.png"),
                         cv2.cvtColor(frame, cv2.COLOR_RGB2BGR))
+
+
+def encode_png(frame_u8: np.ndarray) -> bytes:
+    """One (H, W, 3) uint8 frame as PNG bytes (PIL, else cv2)."""
+    try:
+        from PIL import Image
+
+        buf = io.BytesIO()
+        Image.fromarray(frame_u8).save(buf, format="PNG")
+        return buf.getvalue()
+    except ImportError:
+        import cv2
+
+        ok, data = cv2.imencode(".png", cv2.cvtColor(frame_u8, cv2.COLOR_RGB2BGR))
+        if not ok:
+            raise IOError("cv2 could not encode the frame as PNG")
+        return data.tobytes()
 
 
 def get_video_paths(folder: str) -> List[str]:

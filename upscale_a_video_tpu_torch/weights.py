@@ -12,7 +12,8 @@ of the name (``conv1``, ``linear_1`` ...); ``base``/``params`` segments and the
 inner ``conv`` wrapper segment are dropped; ``kernel``/``scale``/``embedding``
 → ``weight``, with kernels transposed HWIO→OIHW, DHWIO→OIDHW, (I,O)→(O,I).
 :func:`raft_state_dict` gives a RAFT tree ``raft-things.pth``'s key names
-(the inverse of ``upscale_a_video_tpu/models/raft.py:470``).
+(the inverse of ``upscale_a_video_tpu/models/raft.py:470``),
+:func:`llava_state_dict` a LLaVA tree the released checkpoints' keys.
 """
 
 from __future__ import annotations
@@ -132,12 +133,24 @@ def raft_state_dict(flat: Mapping[Tuple[str, ...], np.ndarray]) -> Dict[str, tor
     return sd
 
 
+def llava_state_dict(flat: Mapping[Tuple[str, ...], np.ndarray],
+                     mpt: bool = False) -> Dict[str, torch.Tensor]:
+    """A JAX LLaVA parameter tree (``{path: array}``, LLaMA or, with ``mpt``,
+    MPT decoder) → the HF checkpoint keys the port's LLaVA modules carry,
+    through the copied rename tables (``models/llava/convert.py``)."""
+    from .models.llava.convert import LLAVA_MPT_RENAMES, LLAVA_RENAMES
+
+    return to_state_dict(flat, LLAVA_MPT_RENAMES if mpt else LLAVA_RENAMES)
+
+
 @torch.no_grad()
 def init_random_(module: torch.nn.Module, generator: torch.Generator) -> torch.nn.Module:
     """PyTorch's default initialisers, drawn from ``generator`` on the
     parameters' own device: Linear/Conv weight and bias U(±1/√fan_in),
-    Embedding N(0, 1), norms ones and zeros. Works on a module made with
+    Embedding N(0, 1), norms ones and zeros, any other parameter (a class
+    token) N(0, 0.02), after the rest. Works on a module made with
     ``to_empty``, so full-size weights never pass through the host."""
+    done = set()
     for m in module.modules():
         w = getattr(m, "weight", None)
         b = getattr(m, "bias", None)
@@ -152,4 +165,10 @@ def init_random_(module: torch.nn.Module, generator: torch.Generator) -> torch.n
             w.fill_(1.0)
             if b is not None:
                 b.zero_()
+        else:
+            continue
+        done.update(id(t) for t in (w, b) if t is not None)
+    for p in module.parameters():
+        if id(p) not in done:
+            p.normal_(0.0, 0.02, generator=generator)
     return module
