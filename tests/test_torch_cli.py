@@ -129,11 +129,14 @@ def test_cli_refusals(bundle, tmp_path, monkeypatch):
         monkeypatch.delenv(var, raising=False)
     with pytest.raises(ValueError, match="invalid input"):  # no captioner refusal any more
         cli.main(base + ["--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP B7"):
-        cli.main(base + ["--no_llava", "--decode_fp32", "--decode_attn", "fp32"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(base + ["--no_llava"])
+    # fp32 operands in the decode's attention are no refusal on the card
+    # (the fp32 flash kernel takes them): the run stops only for want of a card
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(base + ["--no_llava", "--decode_fp32", "--decode_attn", "fp32", "--device",
+                         "cuda"])
     with pytest.raises(ValueError, match="invalid input"):
         cli.main(base + ["--no_llava", "--device", "cpu"])
 

@@ -465,7 +465,8 @@ def test_resblock_gate():
     no wider site)."""
     import chip_smoke
 
-    sites = chip_smoke.RESBLOCK_P1 + chip_smoke.RESBLOCK_P2 + chip_smoke.RESBLOCK_P4
+    sites = (chip_smoke.RESBLOCK_P1 + chip_smoke.RESBLOCK_P2 + chip_smoke.RESBLOCK_P4
+             + chip_smoke.RESBLOCK_P6)
     for (b, t, h, w, c, _) in sites:
         assert t_res.fused_resblock_fits(torch.empty(b, t, h, w, c, **BF), 32, 32)
     for shape in ((1, 12, 15, 20, 320), (2, 3, 3, 5, 64), (1, 1, 1, 1, 512), (2, 16, 8, 8, 256)):
@@ -556,7 +557,8 @@ def test_resblock_partial_counts():
     import chip_smoke
 
     sites = [s[:5] for s in
-             chip_smoke.RESBLOCK_P1 + chip_smoke.RESBLOCK_P2 + chip_smoke.RESBLOCK_P4]
+             chip_smoke.RESBLOCK_P1 + chip_smoke.RESBLOCK_P2 + chip_smoke.RESBLOCK_P4
+             + chip_smoke.RESBLOCK_P6]
     sites += [(1, 12, 15, 20, 320), (2, 3, 3, 5, 64)]
     for sms in (132, 114):
         for (b, t, h, w, c) in sites:

@@ -97,6 +97,17 @@ def test_port_and_chip_smoke_import_with_jax_blocked():
         "import upscale_a_video_tpu_torch.utils.quant\n"
         "import upscale_a_video_tpu_torch.captioner\n"
         "import upscale_a_video_tpu_torch.cli\n"
+        "import upscale_a_video_tpu_torch.serving\n"
+        "import upscale_a_video_tpu_torch.serving.predictor\n"
+        "import upscale_a_video_tpu_torch.serving.controller\n"
+        "import upscale_a_video_tpu_torch.serving.worker\n"
+        "import upscale_a_video_tpu_torch.serving.caption_worker\n"
+        "import upscale_a_video_tpu_torch.serving.web_demo\n"
+        "import upscale_a_video_tpu_torch.utils.stream\n"
+        "import upscale_a_video_tpu_torch.utils.checkpoint\n"
+        "import upscale_a_video_tpu_torch.utils.metrics\n"
+        "import upscale_a_video_tpu_torch.utils.lpips\n"
+        "import upscale_a_video_tpu_torch.pipeline.eval\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', "
         "'upscale_a_video_tpu') and sys.modules[m] is not None]\n"

@@ -316,6 +316,24 @@ def test_port_gates_cover_the_slice_shapes():
                                     torch.empty(32, 8, 64, 128, **bf))
 
 
+@pytest.mark.parametrize("d", [512, 320, 64])
+def test_flash_gate_admits_fp32_operands(d):
+    """fp32 q/k/v (``--decode_attn fp32``) pass the gate at D <= 512 with
+    Sq, Sk >= 512, run on the fp32 kernel's widths (256 or 512, zero-padded
+    up to them), and a bias or a short sequence still keeps them off it."""
+    from upscale_a_video_tpu_torch.ops.flash_attention import (F32_WIDTHS, flash_attention_fits,
+                                                               kernel_width)
+
+    f32 = dict(dtype=torch.float32, device="meta")
+    q, k = torch.empty(3, 1, 4096, d, **f32), torch.empty(3, 1, 512, d, **f32)
+    assert flash_attention_fits(q, k)
+    assert not flash_attention_fits(q, k, bias=torch.empty(1, 4096, 512, **f32))
+    assert not flash_attention_fits(q, torch.empty(3, 1, 511, d, **f32))
+    assert not flash_attention_fits(torch.empty(3, 1, 4096, d, dtype=torch.float16,
+                                                device="meta"), k)
+    assert kernel_width(d, torch.float32) == (256 if d <= 256 else 512) in F32_WIDTHS
+
+
 def test_launch_counts_reset():
     _cuda.LAUNCHES["fused_feedforward"] += 3
     _cuda.reset_launch_counts()

@@ -10,8 +10,8 @@ versions of the kernels then). Flags with a port meaning:
 - ``--decode_fp32``: the VAE decodes in fp32; without it in bf16, as the JAX
   CLI does.
 - ``--decode_attn fp32``: fp32 q/k/v in the VAE's mid-block attention
-  (``SpatialAttentionBlock.fp32_operands``). Only the plain attention takes
-  them, so the card refuses it (ROADMAP B7); the CPU runs it.
+  (``SpatialAttentionBlock.fp32_operands``), on the card through the fp32
+  flash kernel.
 - ``--seed``: seeds a fresh torch generator for every pipeline call (every
   tile call starts from the same seed, as the JAX CLI's one key).
 - ``-p``: RAFT from ``<model_dir>/propagator/raft-things.pth``, random
@@ -88,19 +88,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--decode_fp32", action="store_true", default=False,
                    help="decode the VAE in fp32 (reference parity); default bf16")
     p.add_argument("--decode_attn", type=str, default="bf16", choices=("fp32", "bf16"),
-                   help="operand type of the fp32 decode's mid-block attention; fp32 runs "
-                        "only on the CPU (the card's flash kernel takes bf16)")
+                   help="operand type of the fp32 decode's mid-block attention")
     p.add_argument("--w_lr", type=float, default=1.0)
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default) or cpu (the kernels' plain versions)")
     return p
-
-
-def check_args(args) -> None:
-    """Refuse what the port cannot run, before any model is built."""
-    if args.decode_attn == "fp32" and torch.device(args.device).type == "cuda":
-        raise NotImplementedError("--decode_attn fp32 on the card needs an fp32-operand variant "
-                                  "of the flash kernel (ROADMAP B7); it runs with --device cpu")
 
 
 def load_models(args, device: torch.device):
@@ -215,7 +207,6 @@ def write_results(args, name: str, frames_u8: np.ndarray, fps: float) -> None:
 
 
 def run(args) -> None:
-    check_args(args)
     device = resolve_device(args.device)
     print("Loading Upscale-A-Video (PyTorch port)", flush=True)
     pipeline, raft = load_models(args, device)

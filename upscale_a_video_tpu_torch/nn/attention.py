@@ -306,8 +306,8 @@ class SpatialAttentionBlock(nn.Module):
     diffusers AttentionBlock). On an fp32 decode q/k/v go to the attention
     as bf16 with an fp32 softmax, as the reference does (``:699-703``);
     ``fp32_operands = True`` keeps them fp32 (the CLI's ``--decode_attn
-    fp32``, JAX ``UAV_VAE_ATTN_F32``), which only the plain attention
-    takes: on the card that raises, since the flash kernel is bf16 only."""
+    fp32``, JAX ``UAV_VAE_ATTN_F32``), which the card runs on the fp32
+    flash kernel (``csrc/flash_attention_f32.cu``)."""
 
     def __init__(self, channels: int, num_head_channels: Optional[int] = None,
                  norm_num_groups: int = 32, eps: float = 1e-6):
@@ -328,10 +328,6 @@ class SpatialAttentionBlock(nn.Module):
         dt = q.dtype
         if dt == torch.float32 and not self.fp32_operands:
             q, k, v = q.to(torch.bfloat16), k.to(torch.bfloat16), v.to(torch.bfloat16)
-        elif dt == torch.float32 and x.is_cuda:
-            raise NotImplementedError(
-                "fp32 q/k/v in the VAE attention (--decode_attn fp32) need an fp32-operand "
-                "variant of the flash kernel, ROADMAP B7, which is not written yet")
         out = attention(q, k, v, 1.0 / float(np.sqrt(c / self.heads)))
         out = self.proj_attn(_merge_heads(out).to(dt))
         return out.reshape(b, t, hh, ww, c) + x

@@ -35,13 +35,14 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17", "
 
 KERNELS = ("temporal_attention_block", "fused_temporal_resblock", "cross_attention_block",
            "fused_feedforward", "flash_attention", "fused_temporal_attention",
-           "fused_group_norm", "temporal_conv")
+           "fused_group_norm", "temporal_conv", "flash_attention_f32")
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 SHAPES: Dict[str, Dict[Tuple, int]] = {name: {} for name in KERNELS}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "uav_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "uav_flash_attention_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "uav_temporal_attention_block": [_P] * 12 + [_I] * 6 + [_F, _I, _P],
     "uav_cross_attention_block": [_P] * 7 + [_I] * 6 + [_F, _I, _P],
     "uav_fused_feedforward": [_P] * 10 + [_I, _I, _F, _I, _P],

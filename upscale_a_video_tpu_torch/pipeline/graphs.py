@@ -58,7 +58,11 @@ class CapturedLoop:
         before = dict(_cuda.LAUNCHES)
         t0 = time.perf_counter()
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, stream=stream):  # a pool of its own
+        # a pool of its own; "thread_local": the capture refuses what this
+        # thread may not do while its stream captures, but not a CUDA call
+        # of another thread (a server's handler threads, a tensor freed
+        # there), which "global" would count against this capture
+        with torch.cuda.graph(self.graph, stream=stream, capture_error_mode="thread_local"):
             self.out = fn(*self.static)
         self.capture_s = time.perf_counter() - t0
         self.launches: Dict[str, int] = {k: v - before[k] for k, v in _cuda.LAUNCHES.items()

@@ -12,6 +12,7 @@ call starts from the same noise stream.
 from __future__ import annotations
 
 from collections import defaultdict
+from typing import Callable, Optional
 
 import torch
 
@@ -20,10 +21,13 @@ from .tiling import plan_tiles
 
 def run_tiled(pipeline, prompt: str, video: torch.Tensor, flows_bi=None, tile_size: int = 256,
               overlap: int = 64, tile_batch: int = 1, seed: int = 10,
+              on_tile: Optional[Callable[[int, int], None]] = None,
               **call_kwargs) -> torch.Tensor:
     """video: (1, T, H, W, 3) → (1, T, 4H, 4W, 3) fp32 on ``video``'s device.
     ``call_kwargs`` go to every pipeline call; a string ``negative_prompt``
-    is repeated for each tile of a call."""
+    is repeated for each tile of a call. ``on_tile(done, total)``, if given,
+    runs after each call with the tiles pasted so far (the serving
+    predictor's ``"tile"`` ticks)."""
     b, t, h, w, _ = video.shape
     if b != 1:
         raise ValueError(f"the tiled runner takes one clip, got a batch of {b}")
@@ -35,6 +39,7 @@ def run_tiled(pipeline, prompt: str, video: torch.Tensor, flows_bi=None, tile_si
         groups[spec.in_shape].append(spec)
 
     step = max(tile_batch, 1)
+    done = 0
     for group in groups.values():
         for i in range(0, len(group), step):
             batch_specs = group[i:i + step]
@@ -50,4 +55,7 @@ def run_tiled(pipeline, prompt: str, video: torch.Tensor, flows_bi=None, tile_si
             for j, s in enumerate(batch_specs):
                 output[0, :, s.out_y0:s.out_y1, s.out_x0:s.out_x1] = \
                     out[j, :, s.tile_y0:s.tile_y1, s.tile_x0:s.tile_x1]
+            done += len(batch_specs)
+            if on_tile is not None:
+                on_tile(done, len(specs))
     return output

@@ -1,4 +1,5 @@
-"""ctypes binding of the host-side pixel conversions (``csrc/frameproc.cpp``).
+"""ctypes binding of the host-side pixel conversions and the frame ring
+(``csrc/frameproc.cpp``; the ring's Python face is ``utils/stream.py``).
 
 Port of ``upscale_a_video_tpu/utils/native_frameproc.py`` without its numpy
 fallback: the library is built at first use with the host C++ compiler
@@ -72,6 +73,13 @@ def lib() -> ctypes.CDLL:
             for fn in (handle.fp_normalize_u8, handle.fp_denormalize_f32,
                        handle.fp_area_downsample4):
                 fn.restype = None
+            for name, args, res in (("create", [i64, i64], p), ("destroy", [p], None),
+                                    ("close", [p], None), ("reserve", [p, i], i64),
+                                    ("slot", [p, i64], p), ("commit", [p, i64], None),
+                                    ("pop", [p, i], i64), ("release", [p, i64], None),
+                                    ("pending", [p], i64)):
+                fn = getattr(handle, f"fp_ring_{name}")
+                fn.argtypes, fn.restype = args, res
             _lib = handle
     return _lib
 

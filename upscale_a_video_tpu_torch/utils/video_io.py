@@ -62,6 +62,16 @@ def _probe_fps_cv2(path: str) -> float:
     return float(fps)
 
 
+def probe_fps(path: str, default: float = 25.0) -> float:
+    """The clip's frame rate as cv2 reads it; ``default`` where cv2 reads
+    none (an image folder, an unreadable file) or is not installed (the JAX
+    serving predictor's rule)."""
+    try:
+        return _probe_fps_cv2(path)
+    except ImportError:
+        return default
+
+
 def _read_image_folder(folder: Path) -> Tuple[np.ndarray, float, str]:
     files = sorted(f for f in folder.iterdir() if f.suffix in IMAGE_EXTENSIONS)
     if not files:
@@ -151,6 +161,21 @@ def encode_png(frame_u8: np.ndarray) -> bytes:
         if not ok:
             raise IOError("cv2 could not encode the frame as PNG")
         return data.tobytes()
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """PNG bytes → one (H, W, 3) RGB uint8 frame (PIL, else cv2)."""
+    try:
+        from PIL import Image
+
+        return np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+    except ImportError:
+        import cv2
+
+        frame = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
+        if frame is None:
+            raise IOError("cv2 could not decode the PNG")
+        return cv2.cvtColor(frame, cv2.COLOR_BGR2RGB)
 
 
 def get_video_paths(folder: str) -> List[str]:
