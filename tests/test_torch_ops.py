@@ -334,6 +334,25 @@ def test_flash_gate_admits_fp32_operands(d):
     assert kernel_width(d, torch.float32) == (256 if d <= 256 else 512) in F32_WIDTHS
 
 
+@pytest.mark.parametrize("sk", [64, 1000, 37])
+def test_f32_value_layout_gives_pv(sk):
+    """The fp32 kernel's value layout (V^T, keys permuted inside each group
+    of 8, zero keys past Sk), with P in the order the kernel's A fragments
+    take its score columns (k-index t of a group from column 2t, t + 4 from
+    2t + 1), gives P V: the pad keys add nothing whatever P holds there."""
+    from upscale_a_video_tpu_torch.ops.flash_attention import f32_value_layout
+
+    rng = np.random.default_rng(0)
+    v = torch.from_numpy(rng.standard_normal((2, sk, 48)).astype(np.float32))
+    p = torch.from_numpy(rng.random((2, 16, sk)).astype(np.float32))
+    vt = f32_value_layout(v)
+    skp = -(-sk // 8) * 8
+    assert vt.shape == (2, 48, skp) and vt.is_contiguous()
+    pp = torch.nn.functional.pad(p, (0, skp - sk), value=1.0)
+    frag = pp.reshape(2, 16, skp // 8, 4, 2).transpose(-1, -2).reshape(2, 16, skp)
+    torch.testing.assert_close(frag @ vt.transpose(1, 2), p @ v, rtol=1e-5, atol=1e-5)
+
+
 def test_launch_counts_reset():
     _cuda.LAUNCHES["fused_feedforward"] += 3
     _cuda.reset_launch_counts()

@@ -1,8 +1,10 @@
 // Hopper building blocks of the TMA + wgmma kernels (gemm_core.cuh,
-// flash_attention.cu, cross_attention_block.cu), in raw PTX: mbarriers, TMA
-// tile loads, 128-byte swizzled shared-memory descriptors, ldmatrix, the
-// wgmma instructions and named barriers; on the host, the tensor-map encode,
-// reached through the runtime's driver entry point (no -lcuda).
+// flash_attention.cu, flash_attention_f32.cu, cross_attention_block.cu), in
+// raw PTX: mbarriers, TMA tile loads, 128-byte swizzled shared-memory
+// descriptors, ldmatrix, the bf16 and tf32 wgmma instructions, named
+// barriers and the cluster's shared-memory exchange; on the host, the
+// tensor-map encode, reached through the runtime's driver entry point (no
+// -lcuda).
 //
 // Registers: wgmma wants its warpgroups aligned (warps 0-3, 4-7), and ptxas
 // allocates registers per four warps and sizes a block for the count at
@@ -438,6 +440,131 @@ struct Wgmma<256> {
   }
 };
 
+// ---------------------------------------------------------------- tf32
+
+// x rounded to TF32 (10 mantissa bits, to nearest, ties away from zero): an
+// fp32 word whose low 13 bits are zero, as a tf32 wgmma operand wants.
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo in two TF32 words (the 3xTF32 split): hi = x rounded to TF32,
+// lo = the remainder (exact in fp32) rounded to TF32. hi*b_hi + hi*b_lo +
+// lo*b_hi then misses x*b by about 2^-21 of it, against 2^-11 for hi*b_hi.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// wgmma.mma_async m64nNk8, tf32 inputs, fp32 accumulators, A from registers
+// and B K-major from shared memory (tf32 has no transpose bit). The
+// accumulators are laid out as Wgmma<N>'s. Warp w, lane l holds A's rows
+// 16w + l/4 (a[0], a[2]) and 16w + l/4 + 8 (a[1], a[3]) at columns l%4
+// (a[0], a[1]) and l%4 + 4 (a[2], a[3]). One k-step of 8 tf32 is 32 bytes
+// of a 128-byte swizzled row, as a bf16 k-step of 16 is.
+template <int N>
+struct WgmmaTf32;
+
+template <>
+struct WgmmaTf32<32> {
+  // D(64x32, fp32) (+)= A(64x8, registers, tf32) * B(8x32, smem, tf32, K-major).
+  static __device__ __forceinline__ void rs(float (&d)[16], const uint32_t (&a)[4], uint64_t b,
+                                            int acc) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+  }
+};
+
+template <>
+struct WgmmaTf32<128> {
+  // D(64x128, fp32) (+)= A(64x8, registers, tf32) * B(8x128, smem, tf32, K-major).
+  static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b,
+                                            int acc) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+  }
+};
+
+// ---------------------------------------------------------------- clusters
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of every block of the cluster: arrive, then wait for all.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" :::
+          "memory");
+}
+
+// The address of `p`'s counterpart in the shared memory of cluster block `rank`.
+__device__ __forceinline__ uint32_t peer_addr(const void* p, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(smem_u32(p)), "r"(rank));
+  return r;
+}
+
+// 16 bytes into a peer block's shared memory (`addr` from peer_addr) that
+// complete 16 bytes of the transaction count of the peer's mbarrier `bar`
+// (from peer_addr): the receiver announces the bytes with mbar_expect_tx.
+__device__ __forceinline__ void st_async_peer_v4(uint32_t addr, float4 v, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, "
+      "[%5];\n" ::"r"(addr),
+      "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(bar)
+      : "memory");
+}
+
+// mbar_wait at cluster scope: what a peer block stored into this one
+// (st_async_peer_v4) is visible after it.
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done;
+  const long long start = clock64();
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (!done && clock64() - start > (1ll << 34)) __trap();
+  } while (!done);
+}
+
 // ---------------------------------------------------------------- host
 
 using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -461,20 +588,22 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A bf16 (d0, d1, d2) tensor, innermost first, with byte strides s1, s2 of
-// dims 1 and 2, read in boxes of 64 x rows x depth with 128-byte swizzle and
-// zero fill (a box lands as depth x rows rows of 128 bytes). The base and the
-// strides must be 16-byte aligned.
+// A bf16 (or `dtype`) (d0, d1, d2) tensor, innermost first, with byte
+// strides s1, s2 of dims 1 and 2, read in boxes of 128 bytes (64 bf16, 32
+// fp32) x rows x depth with 128-byte swizzle and zero fill (a box lands as
+// depth x rows rows of 128 bytes). The base and the strides must be 16-byte
+// aligned.
 inline int make_map_3d(CUtensorMap* map, const void* base, uint64_t d0, uint64_t d1, uint64_t d2,
-                       uint64_t s1, uint64_t s2, uint32_t rows, uint32_t depth = 1) {
+                       uint64_t s1, uint64_t s2, uint32_t rows, uint32_t depth = 1,
+                       CUtensorMapDataType dtype = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return kTmaEncodeError;
   if ((uintptr_t)base % 16 || s1 % 16 || s2 % 16) return (int)cudaErrorMisalignedAddress;
   const cuuint64_t dims[3] = {d0, d1, d2};
   const cuuint64_t strides[2] = {s1, s2};
-  const cuuint32_t box[3] = {64, rows, depth};
+  const cuuint32_t box[3] = {dtype == CU_TENSOR_MAP_DATA_TYPE_FLOAT32 ? 32u : 64u, rows, depth};
   const cuuint32_t elem[3] = {1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+  const CUresult r = fn(map, dtype, 3, const_cast<void*>(base), dims,
                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

@@ -189,11 +189,11 @@ def operand(t: torch.Tensor, dtype: torch.dtype, name: str) -> torch.Tensor:
     return t
 
 
-def tma_operand(t: torch.Tensor, name: str) -> torch.Tensor:
-    """A bf16 operand that a kernel reads through a TMA tensor map: as
-    :func:`operand`, and its rows a multiple of 16 bytes (the map's strides
-    must be). Raises otherwise."""
-    t = operand(t, torch.bfloat16, name)
+def tma_operand(t: torch.Tensor, name: str, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """A bf16 (or ``dtype``) operand that a kernel reads through a TMA tensor
+    map: as :func:`operand`, and its rows a multiple of 16 bytes (the map's
+    strides must be). Raises otherwise."""
+    t = operand(t, dtype, name)
     if t.data_ptr() % 16 or (t.shape[-1] * t.element_size()) % 16:
         raise ValueError(f"{name}: TMA needs a 16-byte-aligned base and row stride, got "
                          f"shape {tuple(t.shape)} at {t.data_ptr():#x}")

@@ -5,9 +5,11 @@ Replaces ``upscale_a_video_tpu/ops/flash_attention.py::flash_attention``
 kernel per operand type:
 - bf16: ``csrc/flash_attention.cu`` (TMA-fed ``wgmma``, the output
   accumulator in registers), built for head widths 64, 128, 256 and 512;
-- fp32: ``csrc/flash_attention_f32.cu`` (every product an FFMA on the CUDA
-  cores: no TF32, no rounding of p), built for head widths 256 and 512.
-  The VAE's mid-block attention takes it under ``--decode_attn fp32``.
+- fp32: ``csrc/flash_attention_f32.cu`` (both products on TF32 ``wgmma``
+  as three products each, hi*hi + hi*lo + lo*hi of each operand split into
+  two TF32 words: near fp32 accuracy), built for head widths 256 and 512.
+  It reads the values as :func:`f32_value_layout` lays them out. The VAE's
+  mid-block attention takes it under ``--decode_attn fp32``.
 Their plain version is :func:`ops.attention.attention_plain`, which
 computes in fp32 whatever the operand type.
 """
@@ -41,6 +43,21 @@ def flash_attention_fits(q: torch.Tensor, k: torch.Tensor, bias=None) -> bool:
             and d <= 512 and q.shape[-2] >= 512 and k.shape[-2] >= 512)
 
 
+def f32_value_layout(v: torch.Tensor) -> torch.Tensor:
+    """The values as the fp32 kernel reads them: (BH, Sk, D) -> (BH, D, Skp),
+    Skp = Sk rounded up to 8, zero keys past Sk, and the keys of each group
+    of 8 in the order 0 2 4 6 1 3 5 7 (key 8g + 2t + h at 8g + 4h + t).
+    TF32 ``wgmma`` reads its B operand only K-major, so O += P V needs V^T;
+    and a thread's score accumulators hold keys 2t and 2t + 1 of each group
+    of 8 where its A fragment of P holds k-indices t and t + 4, which this
+    order makes the same keys. One copy of V."""
+    bh, sk, d = v.shape
+    skp = -(-sk // 8) * 8
+    if skp != sk:
+        v = F.pad(v, (0, 0, 0, skp - sk))
+    return v.reshape(bh, skp // 8, 4, 2, d).permute(0, 4, 1, 3, 2).reshape(bh, d, skp)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
     """q: (..., Sq, D), k/v: (..., Sk, D) → (..., Sq, D) in q.dtype (bf16 or
     fp32, the kernel of that operand type)."""
@@ -56,8 +73,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: fl
     if dk != d:
         qf, kf, vf = (F.pad(t, (0, dk - d)) for t in (qf, kf, vf))
     if f32:
-        qf, kf, vf = (_cuda.operand(t, torch.float32, n)
-                      for t, n in ((qf, "q"), (kf, "k"), (vf, "v")))
+        qf = _cuda.operand(qf, torch.float32, "q")
+        kf = _cuda.tma_operand(kf, "k", torch.float32)
+        vf = _cuda.tma_operand(f32_value_layout(vf), "v", torch.float32)
         name, entry = "flash_attention_f32", _cuda.lib().uav_flash_attention_f32
     else:
         qf, kf, vf = (_cuda.tma_operand(t, n) for t, n in ((qf, "q"), (kf, "k"), (vf, "v")))
