@@ -7,7 +7,8 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 Phases (each announced on a flushed line with the seconds elapsed):
   1. device   card name and power limit, torch/CUDA versions; TF32 off.
-  2. build    the nine CUDA kernels, one nvcc call, into
+  2. build    the nine CUDA kernels, one nvcc process per source run at
+              once, linked into
               upscale_a_video_tpu_torch/_build/ (skipped when already built).
   3. kernels  each kernel against its plain PyTorch version at every shape
               the paths give it (plus flash at the flagship's UNet shape
@@ -34,6 +35,13 @@ Phases (each announced on a flushed line with the seconds elapsed):
               checked without it at path 1's shapes, as PAB calls them);
               after the paths, one run's launches times these per-call
               times give its kernels' seconds against their plain versions'.
+              Then each of the nine wrappers once with autograd on, at one
+              shape a path gives it: its output must carry the kernel
+              route's backward (``_cuda.ViaPlain``), and for one upstream
+              gradient its gradients with respect to every input and
+              weight must equal the plain route's bit for bit (cuDNN held
+              to deterministic algorithms); the backward's seconds and its
+              peak memory above the forward's.
   4. path 1   the 3D-VAE configuration: one full-width UNet forward at the
               slice shape with the kernels and then with the plain versions,
               same weights, and for each route the share of a forward's wall
@@ -119,7 +127,8 @@ Phases (each announced on a flushed line with the seconds elapsed):
               within relative L2 1e-4; the native frame conversions equal
               their plain versions exactly on the path's frames. The CLI
               runs clips over 8 frames step by step (step_mode "host").
-              Then the clip's first 8 frames (one call of two tiles, "scan")
+              Then the clip's first 8 frames at 10 steps (cut from 30 for
+              the script's time; -p 4,6,8; one call of two tiles, "scan")
               as a run of such clips calls them: first, second and third
               call (eager; capture and replay; replay) against host, equal
               outputs, launches as predicted, the calls of one key after
@@ -164,6 +173,30 @@ Phases (each announced on a flushed line with the seconds elapsed):
               card within 1e-4 relative of the CPU's; a second run resumes
               and calls nothing.
 
+ 10. path 7   training at released widths (random weights, seeded). The
+              UNet's temporal finetune: ``make_train_batch`` of 2 clips of 8
+              frames at 256x256 (degrade, the VAE encoder in 2-frame chunks:
+              64x64 latents) and CLIP embeddings of two prompts; step 1's
+              loss and temporal gradients with the kernels against the plain
+              route on the same batch and noise (relative L2 within the
+              UNet's gate); three AdamW steps (bf16 UNet, fp32 masters;
+              steps 1-2 without remat, step 3 with it): seconds, peaks,
+              kernels 1-4 launched only at checked shapes, (16, 16, 20, 16)
+              a forward and twice under remat; frozen parameters
+              bit-unchanged, every trained master moved, finite losses. The
+              video VAE's GAN step (the conditioned decoder in fp32 with flash
+              in its mid block, a PatchDiscriminator, 5 frames at a 32x32
+              latent): the generator loss and VAE gradients with the kernels
+              against the plain route; a discriminator step that leaves the
+              VAE bit-unchanged and without gradient. A LoRA caption step at
+              LlavaConfig()'s widths with the vision tower and LLaMA cut to
+              2 layers each: the base bit-unchanged, every adapter moved, a
+              finite loss. Then the variants off the released config: a
+              TemporalModule3D with the attention branch at a path-6 site
+              (2, 8, 64, 64, 256), forward and input gradient with the
+              kernels against the plain route; LearnablePropagation (mid 256)
+              on the card against the CPU (relative L2 1e-2).
+
 It exits non-zero, printing no result, without a CUDA device. Any failure
 raises. The last line is the JSON result; the two lines before it are the
 kernels' JSON record and the card's ``nvidia-smi`` name and power limit.
@@ -174,13 +207,16 @@ runs phases 1-3 for the named kernels alone and writes their records to
 chiprun_out/chip_smoke_only.json (no paths, no result line): a quick
 before/after measure of a kernel, also against an older checkout's package.
 ``--paths 1,2,6`` runs every kernel check and then only the named paths (no
-result line; records in chiprun_out/chip_smoke_kernels.json).
+result line; records in chiprun_out/chip_smoke_kernels.json); ``--paths 7``
+the training path alone.
 """
 
 from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
+import gc
 import json
 import os
 import re
@@ -199,14 +235,19 @@ import torch.nn.functional as F
 
 from upscale_a_video_tpu_torch import captioner, cli
 from upscale_a_video_tpu_torch.config import VIDEO_VAE
+from upscale_a_video_tpu_torch.models import AutoencoderKLVideo
 from upscale_a_video_tpu_torch.models.llava import LlavaCaptioner, LlavaConfig, LlavaModel
+from upscale_a_video_tpu_torch.models.llava.clip_vision import CLIPVisionConfig
 from upscale_a_video_tpu_torch.models.llava.conversation import (build_caption_prompt,
                                                                  preprocess_image)
-from upscale_a_video_tpu_torch.models.llava.llama import causal_prefill_mask, decode_step_mask
+from upscale_a_video_tpu_torch.models.llava.llama import (LlamaConfig, causal_prefill_mask,
+                                                          decode_step_mask)
 from upscale_a_video_tpu_torch.models.llava.mpt import MPTConfig, MPTForCausalLM
+from upscale_a_video_tpu_torch.models.propagation_learnable import LearnablePropagation
 from upscale_a_video_tpu_torch.models.propagation import fb_consistency_check, propagate_latents
 from upscale_a_video_tpu_torch.models.raft import RaftRunner, compute_bidirectional_flows, load_raft
 from upscale_a_video_tpu_torch.nn.attention import SpatialAttentionBlock
+from upscale_a_video_tpu_torch.nn.temporal import TemporalModule3D
 from upscale_a_video_tpu_torch.ops import _cuda
 from upscale_a_video_tpu_torch.ops.attention import attention_plain
 from upscale_a_video_tpu_torch.ops.cross_attention_block import (
@@ -226,6 +267,7 @@ from upscale_a_video_tpu_torch.ops.warp import flow_warp
 from upscale_a_video_tpu_torch.pipeline import (PABConfig, chunk_starts, load_pipeline,
                                                  random_pipeline)
 from upscale_a_video_tpu_torch.pipeline import graphs
+from upscale_a_video_tpu_torch.pipeline.pipeline import build_module
 from upscale_a_video_tpu_torch.pipeline.color import apply_color_fix
 from upscale_a_video_tpu_torch.pipeline.eval import evaluate_directory
 from upscale_a_video_tpu_torch.serving import predictor as predictor_module
@@ -233,6 +275,12 @@ from upscale_a_video_tpu_torch.serving.controller import serve_controller
 from upscale_a_video_tpu_torch.serving.predictor import Predictor
 from upscale_a_video_tpu_torch.serving.web_demo import serve_web_demo
 from upscale_a_video_tpu_torch.serving.worker import serve_worker
+from upscale_a_video_tpu_torch.training import lora
+from upscale_a_video_tpu_torch.training.data import make_train_batch
+from upscale_a_video_tpu_torch.training.train_llava import make_caption_lora_step, splice_labels
+from upscale_a_video_tpu_torch.training.train_unet import (diffusion_loss, draw_noise,
+                                                           init_optimizer, make_train_step)
+from upscale_a_video_tpu_torch.training.train_vae import PatchDiscriminator, vae_training_losses
 from upscale_a_video_tpu_torch.utils import native_frameproc, quant, video_io
 from upscale_a_video_tpu_torch.utils.lpips import LPIPS, load_lpips
 from upscale_a_video_tpu_torch.utils.metrics import psnr, ssim
@@ -342,7 +390,18 @@ DEVICE_KERNELS = (("cab_kernel", "cross_attention_block"),
                   ("gn_", "fused_temporal_resblock"),
                   ("fta_", "fused_temporal_attention"),
                   ("flash_wgmma_kernel", "flash_attention"))
-ALL_PATHS = ("1", "2", "3", "4", "5", "6")
+ALL_PATHS = ("1", "2", "3", "4", "5", "6", "7")
+# path 7: a UNet forward's launches at T = 8 without CFG rows (as path 1's
+# forward: 16 transformer blocks, 16 temporal resblocks at C <= 512, 20
+# text cross-attentions at C = 512); remat runs each forward twice
+P7_FORWARD = {"temporal_attention_block": 16, "fused_temporal_resblock": 16,
+              "cross_attention_block": 20, "fused_feedforward": 16}
+P7_CLIPS, P7_FRAMES, P7_HR = 2, 8, 256     # 2 clips of 8 frames at 256x256 -> 64x64 latents
+P7_REMAT = (False, False, True)            # remat per AdamW step: steps 1-2 without, 3 with
+P7_GAN = (1, 5, 32, 32)                    # the VAE GAN step: 5 frames, 32x32 latents
+P7_VISION_LAYERS, P7_LLAMA_LAYERS = 2, 2   # the LoRA caption step's depth cut
+A7_SITE = (2, 8, 64, 64, 256)              # a TemporalModule3D site of path 6 (checked resblock)
+A7_PROP = (1, 5, 48, 80)                   # LearnablePropagation's latent clip (flows at 4x)
 PAB_COMPUTED = (0, 1, 2, 8, 14, 20, 26)  # steps PABConfig() computes the cross-attention at
 PATH1_KERNELS = ("temporal_attention_block", "fused_temporal_resblock", "cross_attention_block",
                  "fused_feedforward", "flash_attention")
@@ -585,11 +644,12 @@ def check_kernels(only=None):
     # 5. flash attention: the VAE mid block (d = 512) in 3- and 2-frame decode
     # chunks, at path 1's 64x64 and path 2's 96x160 latent, and path 4's
     # 128x192 tiles two at a time (bf16 decode) and one at a time (the fp32
-    # tile-batching pair); the flagship's C = 1024 UNet self-attention (40x40
-    # latent), and the other widths
+    # tile-batching pair); path 7's VAE GAN step (5 frames at a 32x32
+    # latent); the flagship's C = 1024 UNet self-attention (40x40 latent),
+    # and the other widths
     for bsz, h, s, d in (((3, 1, 4096, 512), (2, 1, 4096, 512), (3, 1, 15360, 512),
                           (2, 1, 15360, 512), (6, 1, 24576, 512), (4, 1, 24576, 512),
-                          (3, 1, 24576, 512), (2, 1, 24576, 512),
+                          (3, 1, 24576, 512), (2, 1, 24576, 512), (5, 1, 1024, 512),
                           (1, 8, 1600, 128)) + FLASH_WIDTHS
                          if want("flash_attention") else ()):
         q, k, v = (inp.normal(bsz, h, s, d) for _ in range(3))
@@ -672,6 +732,131 @@ def check_kernels(only=None):
             lambda: temporal_conv(x, w, b), lambda: temporal_conv_plain(x, w, b),
             nbytes(x, w, b, y), 2.0 * batch * hh * ww * cin * cout * taps(k, t),
             library=lambda: F.conv3d(xc, w, b, padding=(k // 2, 0, 0))))
+    return recs
+
+
+def backward_case(name, inp):
+    """(shape, the wrapper's call, its plain version's call, the tensors
+    whose gradients are owed) of kernel ``name`` at one shape a path gives
+    it; every float input is a leaf that requires grad."""
+    leaf = lambda t: t.requires_grad_()
+    if name == "temporal_attention_block":  # path 6 and 7's level-2 transformer
+        x = leaf(inp.normal(16, 256, 512))
+        lw, lb = (leaf(a) for a in inp.norm(512))
+        wq, wk, wv, wo = (leaf(inp.weight(512, 512)) for _ in range(4))
+        bo, bias = leaf(inp.normal(512, scale=0.1)), leaf(inp.normal(8, 8, 8, dtype=torch.float32))
+        args = (x, lw, lb, wq, wk, wv, wo, bo, bias)
+        return ([16, 256, 512, 8, 1],
+                lambda: fused_temporal_attention_block(*args, video_length=8, add_residual=True),
+                lambda: temporal_attention_block_plain(*args, 8, 32, 1e-5, True), args)
+    if name == "fused_temporal_resblock":  # path 6 and 7's 16x16 TemporalModule3D
+        x = leaf(inp.normal(2, 8, 16, 16, 512))
+        (n1w, n1b), (n2w, n2b) = inp.norm(512), inp.norm(512)
+        w1 = inp.weight(512, 512, 5, 1, 1, fan_in=512 * 5)
+        w2 = inp.weight(512, 512, 3, 1, 1, fan_in=512 * 3)
+        b1, b2 = inp.normal(512, scale=0.1), inp.normal(512, scale=0.1)
+        temb = inp.normal(2, 512, dtype=torch.float32)
+        args = tuple(leaf(a) for a in (x, n1w, n1b, w1, b1, temb, n2w, n2b, w2, b2))
+        return ([2, 8, 16, 16, 512, 5],
+                lambda: fused_temporal_resblock(*args, groups=32, eps=1e-6),
+                lambda: fused_temporal_resblock_plain(*args, 32, 1e-6), args)
+    if name == "cross_attention_block":  # path 6 and 7's 16x16 level, the fold under autograd
+        x = leaf(inp.normal(16, 256, 512))
+        lw, lb = (leaf(a) for a in inp.norm(512))
+        k_, v_ = (leaf(inp.normal(2, 77, 512, scale=0.5)) for _ in range(2))
+        wq, wo = leaf(inp.weight(512, 512)), leaf(inp.weight(512, 512))
+        bo = leaf(inp.normal(512, scale=0.1))
+        return ([16, 256, 512, 8, 1],
+                lambda: fused_cross_attention_block(x, lw, lb, wq, k_, v_, wo, bo, heads=8,
+                                                    dim_head=64, t_repeat=8, add_residual=True),
+                lambda: cross_attention_block_plain(x, lw, lb, *fold(wq, k_, v_, wo, 8, 64), 77,
+                                                    bo, 8, 1e-5, True),
+                (x, lw, lb, wq, k_, v_, wo, bo))
+    if name == "fused_feedforward":  # path 6 and 7's 16x16 level
+        x = leaf(inp.normal(16, 256, 512))
+        lw, lb = inp.norm(512)
+        args = tuple(leaf(a) for a in (x, lw, lb, inp.weight(4096, 512),
+                                       inp.normal(4096, scale=0.1), inp.weight(512, 2048),
+                                       inp.normal(512, scale=0.1)))
+        return ([16, 256, 512], lambda: fused_feedforward(*args, add_residual=True),
+                lambda: fused_feedforward_plain(*args, 1e-5, True), args)
+    if name in ("flash_attention", "flash_attention_f32"):  # path 7's GAN step; path 1's decode
+        f32 = name == "flash_attention_f32"
+        bsz, s_ = (2, 4096) if f32 else (5, 1024)
+        dt = torch.float32 if f32 else torch.bfloat16
+        args = tuple(leaf(inp.normal(bsz, 1, s_, 512, dtype=dt)) for _ in range(3))
+        return ([bsz, 1, s_, s_, 512], lambda: flash_attention(*args, 512 ** -0.5),
+                lambda: attention_plain(*args, 512 ** -0.5), args)
+    if name == "fused_temporal_attention":  # path 2's level 2
+        q, k = inp.normal(1920, 5, 8, 64, scale=0.3), inp.normal(1920, 5, 8, 64, scale=0.3)
+        args = tuple(leaf(a) for a in (q, k, inp.normal(1920, 5, 8, 64),
+                                       inp.normal(8, 5, 5, dtype=torch.float32)))
+        return ([1920, 5, 8, 64], lambda: fused_temporal_attention(*args),
+                lambda: temporal_attention_plain(*args), args)
+    if name == "fused_group_norm":  # a UNet site (the kernels phase's bf16 row)
+        x = inp.normal(4, 8, 64, 64, 256, scale=2.0) + 0.5
+        args = tuple(leaf(a) for a in (x, *inp.norm(256)))
+        return ([4, 8, 64, 64, 256, "bfloat16", "silu"],
+                lambda: fused_group_norm(*args, 32, 1e-6, "silu"),
+                lambda: group_norm_plain(*args, 32, 1e-6, "silu"), args)
+    if name == "temporal_conv":  # a resblock conv of path 1
+        args = tuple(leaf(a) for a in (inp.normal(4, 8, 16, 16, 512),
+                                       inp.weight(512, 512, 5, 1, 1, fan_in=512 * 5),
+                                       inp.normal(512, scale=0.1)))
+        return ([4, 8, 16, 16, 512, 512, 5], lambda: temporal_conv(*args),
+                lambda: temporal_conv_plain(*args), args)
+    raise KeyError(name)
+
+
+def check_backward(only=None):
+    """Each kernel's wrapper called with autograd on, at one shape a path
+    gives it: its output carries ``_cuda.ViaPlain``'s backward, and for one
+    upstream gradient the kernel route's gradients with respect to every
+    input and weight equal the plain route's bit for bit (the backward IS
+    the plain version, JAX's custom-VJP split; cuDNN held to its
+    deterministic algorithms for the convs' weight gradients). Also the
+    backward's peak memory above what the forward left, and its time."""
+    recs = []
+    inp = Inputs(11)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name in _cuda.KERNELS:
+            if only is not None and name not in only:
+                continue
+            shape, kern, plain, leaves = backward_case(name, inp)
+            out = kern()
+            kind = type(out.grad_fn).__name__
+            if kind != "ViaPlainBackward":
+                raise AssertionError(f"{name} {shape}: output's grad_fn is {kind}, not the "
+                                     f"kernel route's ViaPlainBackward")
+            g = inp.normal(*out.shape, dtype=out.dtype)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.time()
+            got = torch.autograd.grad(out, leaves, g)
+            torch.cuda.synchronize()
+            backward_s = time.time() - t0
+            peak = torch.cuda.max_memory_allocated() - base
+            del out
+            ref = torch.autograd.grad(plain(), leaves, g)
+            equal = [a is not None and torch.equal(a, b) for a, b in zip(got, ref)]
+            diff = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, ref))
+            rec = dict(name=name, shape=shape, grad_fn=kind, inputs=len(leaves),
+                       bit_equal=all(equal), max_abs_diff=diff, backward_s=backward_s,
+                       backward_peak_mib=peak / 2**20,
+                       zero_grads=sum(int(not a.abs().sum().item()) for a in got))
+            log(json.dumps(rec))
+            if not all(equal):
+                raise AssertionError(f"{name} {shape}: the kernel route's gradients differ from "
+                                     f"the plain route's at inputs "
+                                     f"{[i for i, e in enumerate(equal) if not e]}")
+            recs.append(rec)
+            del got, ref, leaves
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
     return recs
 
 
@@ -1402,10 +1587,14 @@ P4_LAUNCHES = {"temporal_attention_block": 16 * P4_FORWARDS,
                "cross_attention_block": 20 * P4_FORWARDS,
                "fused_feedforward": 16 * P4_FORWARDS, "flash_attention": 5}
 P4_FP32_LAUNCHES = {"flash_attention": 9}
-# path 4's short clip: its first 8 frames, one window a step, 3 decode chunks
-FRAMES4S = 8
-P4S_LAUNCHES = dict(P4_LAUNCHES, **{k: v // 2 for k, v in P4_LAUNCHES.items()
-                                    if k != "flash_attention"}, flash_attention=3)
+# path 4's short clip: its first 8 frames at 10 steps (cut from 30 for the
+# script's time; propagation at steps 4, 6 and 8, as 24, 26, 28 of 30), one
+# window a step, 3 decode chunks
+FRAMES4S, P4S_STEPS = 8, 10
+P4S_ARGV = P4_ARGV + ["-s", str(P4S_STEPS), "-p", "4,6,8"]
+P4S_LAUNCHES = {k: v // P4_FORWARDS * P4S_STEPS for k, v in P4_LAUNCHES.items()
+                if k != "flash_attention"}
+P4S_LAUNCHES["flash_attention"] = 3
 
 
 class StageClock:
@@ -1565,28 +1754,29 @@ def printable(text: str) -> str:
 
 
 def run_short_clip(pipe, raft, frames_u8, card: str, checked):
-    """An 8-frame clip through ``cli.process_clip`` with path 4's flags (one
-    call of its two tiles, under the "scan" the CLI keeps for clips of 8
-    frames or fewer), as a run of such clips calls it: the first call runs
-    the loop eagerly, the second captures and replays it, the third
-    replays; against the host loop (seconds, launches, outputs equal), and
-    the number of calls of one key after which scan's total is below
-    host's. Then the same clip with the captioner at LLaVA-1.5-13B widths
+    """An 8-frame clip through ``cli.process_clip`` with path 4's flags at
+    P4S_STEPS steps (one call of its two tiles, under the "scan" the CLI
+    keeps for clips of 8 frames or fewer), as a run of such clips calls it:
+    the first call runs the loop eagerly, the second captures and replays
+    it, the third replays; against the host loop (seconds, launches,
+    outputs equal), and the number of calls of one key after which scan's
+    total is below host's. Then the same clip with the captioner at LLaVA-1.5-13B widths
     (bf16, random weights) on the card beside the pipeline, the graph held:
     the CLI's peak memory with both."""
-    args = cli.build_parser().parse_args(P4_ARGV)
+    args = cli.build_parser().parse_args(P4S_ARGV)
     pipe.step_mode, pipe.window_group = "scan", 0  # what the CLI leaves for short clips
     pipe.graphs.clear()
     torch.cuda.empty_cache()
     clip = lambda captioner=None: cli.process_clip(pipe, raft, frames_u8, args, captioner)
     first, capture, warm = (timed_call(clip) for _ in range(3))
-    loop = captured_loop(pipe, STEPS)
+    loop = captured_loop(pipe, P4S_STEPS)
     pipe.step_mode = "host"
     host = timed_call(clip)
     pipe.step_mode = "scan"
     t = len(frames_u8)
     n_even = break_even(first["s"], capture["s"], warm["s"], host["s"])
-    log(f"path 4, {t} frames (cli.process_clip, scan): first call {first['s']:.2f} s (eager), "
+    log(f"path 4, {t} frames at {P4S_STEPS} steps (cli.process_clip, scan): first call "
+        f"{first['s']:.2f} s (eager), "
         f"second {capture['s']:.2f} s (capture {loop.capture_s:.2f} s), third {warm['s']:.2f} s "
         f"({t / warm['s']:.4f} frames/s); host {host['s']:.2f} s ({t / host['s']:.4f} frames/s) "
         f"on {card}; scan's total is below host's after {n_even:.2f} calls of one key; peak "
@@ -2192,6 +2382,379 @@ def run_path6(card: str, checked, llava):
                 seconds=sum(r["pipeline_s"] for r in stages.values()), eval=eval_rec)
 
 
+def prompt_ids(prompts):
+    """(B, 77) CLIP token ids of ``prompts``: BOS, one id per byte of the
+    text (the vocabulary is not in the repository), EOS padding."""
+    ids = np.full((len(prompts), 77), 49407, dtype=np.int64)
+    ids[:, 0] = 49406
+    for i, text in enumerate(prompts):
+        codes = list(text.encode())[:75]
+        ids[i, 1:1 + len(codes)] = [256 + c for c in codes]
+    return torch.as_tensor(ids, device="cuda")
+
+
+def timed_steps(run, n):
+    """``run(i)`` for i < n, each between syncs with the peak memory reset:
+    [(result, seconds, peak allocated GiB, peak reserved GiB)]."""
+    out = []
+    for i in range(n):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        r = run(i)
+        torch.cuda.synchronize()
+        out.append((r, time.time() - t0, torch.cuda.max_memory_allocated() / 2**30,
+                    torch.cuda.max_memory_reserved() / 2**30))
+    return out
+
+
+def both_routes(fn):
+    """``fn`` with the kernels, then on the plain route, then both again
+    (warm): [(result, seconds, peak GiB, reserved GiB)] for kernels, plain,
+    kernels warm, plain warm."""
+    out = []
+    for _ in range(2):
+        out += timed_steps(fn, 1)
+        with _cuda.plain_path():
+            out += timed_steps(fn, 1)
+    return out
+
+
+def route_times(name, runs, card):
+    """Log and return the warm calls' seconds and peaks of both routes."""
+    (_, k_s, k_pk, k_rs), (_, p_s, p_pk, p_rs) = runs[2], runs[3]
+    log(f"{name}, warm: kernels {k_s:.3f} s, peak {k_pk:.2f} / {k_rs:.2f} GiB; plain {p_s:.3f} s, "
+        f"peak {p_pk:.2f} / {p_rs:.2f} GiB; first calls {runs[0][1]:.3f} / {runs[1][1]:.3f} s "
+        f"({card})")
+    return dict(kernels=dict(seconds=k_s, peak_gib=k_pk, reserved_gib=k_rs,
+                             first_seconds=runs[0][1]),
+                plain=dict(seconds=p_s, peak_gib=p_pk, reserved_gib=p_rs,
+                           first_seconds=runs[1][1]))
+
+
+def run_path7_unet(card: str, checked):
+    """The UNet's temporal finetune at released widths (random weights, bf16,
+    fp32 masters): make_train_batch of 2 clips of 8 frames at 256x256
+    (degrade, then the VAE encoder in 2-frame chunks -> 64x64 latents) and
+    CLIP embeddings of two prompts; step 1's loss and temporal gradients
+    with the kernels against the plain route on the same batch and noise;
+    three AdamW steps (remat per P7_REMAT): seconds, peaks, launches at
+    checked shapes in the predicted counts, frozen parameters bit-unchanged,
+    every trained parameter's master moved, finite losses."""
+    pipe = random_pipeline(device="cuda", seed=7)
+    unet, vae = pipe.m.unet, pipe.m.vae
+    g = torch.Generator(device="cuda").manual_seed(7)
+    hr = torch.rand((P7_CLIPS, P7_FRAMES, P7_HR, P7_HR, 3), generator=g, device="cuda") * 2 - 1
+
+    def encode(x):  # one clip's two frames a call: the checked flash shape (2,1,4096,512)
+        return torch.cat([torch.cat([vae.encode(x[b:b + 1, f:f + 2]).mode()
+                                     for f in range(0, x.shape[1], 2)], dim=1)
+                          for b in range(x.shape[0])])
+
+    _cuda.reset_launch_counts()
+    t0 = time.time()
+    with torch.no_grad():
+        text = pipe.m.text_encoder(prompt_ids(["a red car on a wet road at night",
+                                               "waves breaking on dark rocks"]))
+        batch = make_train_batch(hr, encode, text, vae.config.scaling_factor, generator=g)
+    torch.cuda.synchronize()
+    data_s = time.time() - t0
+    data_launches, data_shapes = dict(_cuda.LAUNCHES), launch_shapes()
+    check_launches("path 7 data", data_launches, data_shapes, ["flash_attention"], checked)
+    lat = batch["latents"]
+    log(f"path 7 batch in {data_s:.2f} s: latents {tuple(lat.shape)} std "
+        f"{lat.std().item():.4f}, low_res {tuple(batch['low_res'].shape)}, text "
+        f"{tuple(text.shape)}; flash launches {data_launches['flash_attention']}")
+    if tuple(lat.shape) != (P7_CLIPS, P7_FRAMES, P7_HR // 4, P7_HR // 4, 4) or not \
+            torch.isfinite(lat).all():
+        raise AssertionError(f"path 7: bad latents {tuple(lat.shape)}")
+
+    state = init_optimizer(unet)
+    trained = sum(p.numel() for p, _ in state.pairs)
+    frozen_n = sum(p.numel() for p in unet.parameters() if not p.requires_grad)
+    sched, lrs = pipe.m.scheduler, pipe.m.low_res_scheduler
+    noise = draw_noise(lat, batch["low_res"], sched.config.num_train_timesteps,
+                       pipe.MAX_NOISE_LEVEL, g)
+
+    def loss_and_grads(i):
+        """The loss and its backward, each timed to a sync: (loss, temporal
+        gradients, forward s, backward s)."""
+        state.zero_grad()
+        t0 = time.time()
+        loss = diffusion_loss(unet, batch, sched, lrs, noise=noise)
+        torch.cuda.synchronize()
+        t1 = time.time()
+        loss.backward()
+        torch.cuda.synchronize()
+        return (loss.item(), torch.cat([p.grad.float().flatten() for p, _ in state.pairs]),
+                t1 - t0, time.time() - t1)
+
+    runs = both_routes(loss_and_grads)
+    state.zero_grad()
+    k_run, p_run = runs[0][0], runs[1][0]
+    rel_loss = abs(k_run[0] - p_run[0]) / abs(p_run[0])
+    rel_grad = rel_l2(k_run[1], p_run[1])
+    log(f"path 7 step-1 loss and temporal gradients ({trained / 1e6:.1f} M trained, "
+        f"{frozen_n / 1e6:.1f} M frozen): kernels {k_run[0]:.6f}, plain {p_run[0]:.6f}; "
+        f"relative: loss {rel_loss:.3e}, gradients L2 {rel_grad:.3e} (tol {UNET_TOL})")
+    loss_grads = route_times("path 7 UNet loss and backward", runs, card)
+    for route, run in (("kernels", runs[2][0]), ("plain", runs[3][0])):
+        loss_grads[route].update(forward_seconds=run[2], backward_seconds=run[3])
+    log(f"path 7 UNet warm split: kernels forward {runs[2][0][2]:.3f} s, backward "
+        f"{runs[2][0][3]:.3f} s (the plain versions recomputed under autograd); plain forward "
+        f"{runs[3][0][2]:.3f} s, backward {runs[3][0][3]:.3f} s")
+    if not (np.isfinite(k_run[0]) and rel_loss <= UNET_TOL and rel_grad <= UNET_TOL):
+        raise AssertionError(f"path 7: the UNet step with kernels disagrees with the plain "
+                             f"route (loss {rel_loss:.3e}, gradients {rel_grad:.3e})")
+    del k_run, p_run, runs
+
+    frozen = {n: p.detach().clone() for n, p in unet.named_parameters() if not p.requires_grad}
+    masters = [m.detach().clone() for _, m in state.pairs]
+    step = make_train_step(unet, sched, lrs, state, pipe.MAX_NOISE_LEVEL)
+
+    def one_step(i):
+        unet.use_remat = P7_REMAT[i]
+        return step(batch, generator=g).item()
+
+    _cuda.reset_launch_counts()
+    steps = timed_steps(one_step, len(P7_REMAT))
+    unet.use_remat = False
+    launches, shapes = dict(_cuda.LAUNCHES), launch_shapes()
+    for i, (loss, sec, peak, res) in enumerate(steps):
+        log(f"path 7 AdamW step {i + 1} (remat {P7_REMAT[i]}): loss {loss:.6f}, {sec:.2f} s, "
+            f"peak allocated / reserved {peak:.2f} / {res:.2f} GiB ({card})")
+    check_launches("path 7 unet steps", launches, shapes, list(P7_FORWARD), checked)
+    predicted = {k: n * sum(2 if r else 1 for r in P7_REMAT) for k, n in P7_FORWARD.items()}
+    if {k: v for k, v in launches.items() if v} != predicted:
+        raise AssertionError(f"path 7: launches {launches}, predicted {predicted}")
+    changed = [n for n, p in unet.named_parameters()
+               if n in frozen and not torch.equal(p, frozen[n])]
+    still = sum(int(torch.equal(m, m0)) for (_, m), m0 in zip(state.pairs, masters))
+    log(f"path 7: frozen tensors changed {len(changed)} of {len(frozen)}; trained masters "
+        f"unmoved {still} of {len(masters)}")
+    if changed or still or not all(np.isfinite(s[0]) for s in steps):
+        raise AssertionError(f"path 7: frozen parameters moved ({changed[:5]}), {still} trained "
+                             f"parameters did not, or a loss is not finite")
+    rec = dict(data_seconds=data_s, trained_params=trained, frozen_params=frozen_n,
+               step1_rel_loss=rel_loss, step1_rel_grad_l2=rel_grad, loss_and_backward=loss_grads,
+               steps=[dict(loss=l, seconds=sec, peak_gib=pk, reserved_gib=rs, remat=r)
+                      for (l, sec, pk, rs), r in zip(steps, P7_REMAT)],
+               launches=launches, launches_by_shape=shapes, predicted_launches=predicted,
+               data_launches=data_launches, data_launches_by_shape=data_shapes)
+    del pipe, unet, vae, state, step, frozen, masters, batch
+    torch.cuda.empty_cache()
+    return rec
+
+
+def run_path7_gan(card: str, checked):
+    """The video VAE's GAN finetune: the released conditioned decoder (fp32,
+    flash in its mid block) and a PatchDiscriminator, one clip of P7_GAN:
+    the generator loss and the VAE's gradients with the kernels against the
+    plain route; then a discriminator step that leaves the VAE bit-unchanged
+    and without gradient."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    dev = torch.device("cuda")
+    vae = build_module(AutoencoderKLVideo, VIDEO_VAE, dev, torch.float32, gen)
+    with torch.device("meta"):
+        disc = PatchDiscriminator()
+    disc = init_random_(disc.to_empty(device=dev), gen)
+    b, t, h, w = P7_GAN
+    lat = torch.randn((b, t, h, w, 4), generator=gen, device="cuda")
+    lr_in = torch.rand((b, t, h, w, 3), generator=gen, device="cuda") * 2 - 1
+    gts = torch.rand((b, t, 4 * h, 4 * w, 3), generator=gen, device="cuda") * 2 - 1
+
+    def gen_step(i):
+        vae.zero_grad(set_to_none=True)
+        disc.zero_grad(set_to_none=True)
+        loss, recon = vae_training_losses(vae, disc, lr_in, gts, lat, 0)
+        loss.backward()
+        return loss.item(), torch.cat([p.grad.flatten() for p in vae.parameters()
+                                       if p.grad is not None]), tuple(recon.shape)
+
+    _cuda.reset_launch_counts()
+    runs = both_routes(gen_step)
+    launches, shapes = dict(_cuda.LAUNCHES), launch_shapes()
+    k_run, p_run = runs[0][0], runs[1][0]
+    rel_loss = abs(k_run[0] - p_run[0]) / abs(p_run[0])
+    rel_grad = rel_l2(k_run[1], p_run[1])
+    log(f"path 7 VAE generator loss (recon {k_run[2]}): kernels {k_run[0]:.6f}, plain "
+        f"{p_run[0]:.6f}; relative: loss {rel_loss:.3e}, VAE gradients L2 {rel_grad:.3e} "
+        f"({k_run[1].numel() / 1e6:.1f} M values, tol {UNET_TOL})")
+    gen_times = route_times("path 7 VAE generator loss and backward", runs, card)
+    if not (np.isfinite(k_run[0]) and rel_loss <= UNET_TOL and rel_grad <= UNET_TOL):
+        raise AssertionError(f"path 7: the VAE generator step with kernels disagrees with the "
+                             f"plain route (loss {rel_loss:.3e}, gradients {rel_grad:.3e})")
+    del k_run, p_run, runs
+    vae.zero_grad(set_to_none=True)
+    disc.zero_grad(set_to_none=True)
+    before = {n: p.detach().clone() for n, p in vae.named_parameters()}
+    d_before = [p.detach().clone() for p in disc.parameters()]
+    opt = torch.optim.AdamW(disc.parameters(), lr=1e-4)
+
+    def disc_step(i):
+        loss, _ = vae_training_losses(vae, disc, lr_in, gts, lat, 1)
+        loss.backward()
+        opt.step()
+        return loss.item()
+
+    _cuda.reset_launch_counts()
+    (d_loss, d_s, d_peak, d_res), = timed_steps(disc_step, 1)
+    d_launches, d_shapes = dict(_cuda.LAUNCHES), launch_shapes()
+    with_grad = [n for n, p in vae.named_parameters() if p.grad is not None]
+    moved = [n for n, p in vae.named_parameters() if not torch.equal(p, before[n])]
+    disc_moved = sum(int(not torch.equal(p, p0)) for p, p0 in zip(disc.parameters(), d_before))
+    log(f"path 7 discriminator step: hinge loss {d_loss:.6f}, {d_s:.2f} s, peak {d_peak:.2f} / "
+        f"{d_res:.2f} GiB; VAE tensors with a gradient {len(with_grad)}, moved {len(moved)}; "
+        f"discriminator tensors moved {disc_moved} of {len(d_before)}")
+    if with_grad or moved or not disc_moved or not np.isfinite(d_loss):
+        raise AssertionError(f"path 7: the discriminator step touched the VAE "
+                             f"({with_grad[:3]}, {moved[:3]}) or moved no discriminator weight")
+    total = {k: launches[k] + d_launches[k] for k in launches}
+    by_shape = {k: {**shapes.get(k, {}), **{s_: shapes.get(k, {}).get(s_, 0) + n for s_, n in
+                                            d_shapes.get(k, {}).items()}}
+                for k in set(shapes) | set(d_shapes)}
+    check_launches("path 7 VAE GAN", total, by_shape, ["flash_attention"], checked)
+    rec = dict(gen_rel_loss=rel_loss, gen_rel_grad_l2=rel_grad, generator=gen_times,
+               disc=dict(loss=d_loss, seconds=d_s, peak_gib=d_peak, reserved_gib=d_res),
+               launches=total, launches_by_shape=by_shape)
+    del vae, disc, before, opt
+    torch.cuda.empty_cache()
+    return rec
+
+
+def run_path7_lora():
+    """One LoRA step of the captioner at LlavaConfig()'s widths, the vision
+    tower and the LLaMA decoder cut to P7_VISION_LAYERS and P7_LLAMA_LAYERS
+    layers (bf16 base, fp32 adapters of rank 8 on the default targets): the
+    base bit-unchanged, every adapter's B moved, a finite loss."""
+    full = LlavaConfig()
+    cfg = LlavaConfig(vision=dataclasses.replace(full.vision, num_hidden_layers=P7_VISION_LAYERS),
+                      text=dataclasses.replace(full.text, num_hidden_layers=P7_LLAMA_LAYERS))
+    model = random_module(lambda: LlavaModel(cfg), 9)
+    base = {k: v.clone() for k, v in model.state_dict().items()}
+    adapters = lora.init_lora(model, rank=8,
+                              generator=torch.Generator(device="cuda").manual_seed(9))
+    opt = torch.optim.AdamW(list(lora.lora_parameters(adapters)), lr=1e-4)
+    tok = ByteTokenizer()
+    ids, pos = build_caption_prompt(tok)
+    answer = tok("A red car drives along a wet road at night.", add_special_tokens=False)
+    full_ids = np.concatenate([ids, np.asarray(answer["input_ids"], np.int32)])[None]
+    patches = (cfg.vision.image_size // cfg.vision.patch_size) ** 2
+    labels = splice_labels(full_ids, pos, patches, len(ids))
+    frame = synthetic_clip(6, 1, H4, W4)[0]
+    pixels = torch.as_tensor(preprocess_image(captioner._resize_short_side(frame),
+                                              cfg.vision.image_size), device="cuda")[None]
+    batch = {"pixels": pixels, "input_ids": torch.as_tensor(full_ids, device="cuda").long(),
+             "labels": torch.as_tensor(labels, device="cuda")}
+    step = make_caption_lora_step(model, opt, pos, adapters)
+    (loss, sec, peak, res), = timed_steps(lambda i: step(batch).item(), 1)
+    lora.remove_lora(model)
+    after = model.state_dict()
+    changed = [k for k in base if not torch.equal(after[k], base[k])]
+    unmoved = [n for n, a in adapters.items() if not a.b.abs().sum().item()]
+    n_lora = lora.num_lora_params(adapters)
+    log(f"path 7 LoRA caption step (vision {P7_VISION_LAYERS} of {full.vision.num_hidden_layers} "
+        f"layers, LLaMA {P7_LLAMA_LAYERS} of {full.text.num_hidden_layers}; "
+        f"{sum(v.numel() for v in base.values()) / 1e9:.2f} B base parameters, {len(adapters)} "
+        f"adapters, {n_lora / 1e6:.2f} M adapter parameters, {labels.shape[1]} positions, "
+        f"{int((labels != -100).sum())} labelled): loss {loss:.4f}, {sec:.2f} s, peak "
+        f"{peak:.2f} / {res:.2f} GiB; base tensors changed {len(changed)}, adapters whose B did "
+        f"not move {len(unmoved)}")
+    if changed or unmoved or not np.isfinite(loss):
+        raise AssertionError(f"path 7: the LoRA step changed the base ({changed[:3]}) or left "
+                             f"adapters unmoved ({unmoved[:3]}), loss {loss}")
+    rec = dict(loss=loss, seconds=sec, peak_gib=peak, reserved_gib=res, adapters=len(adapters),
+               adapter_params=n_lora, vision_layers=P7_VISION_LAYERS, llama_layers=P7_LLAMA_LAYERS)
+    del model, base, after, adapters, opt
+    torch.cuda.empty_cache()
+    return rec
+
+
+def run_variants(checked):
+    """The variants off the released config (ROADMAP A7) on the card: a
+    TemporalModule3D with the attention branch (Temporal, Temporal) at a
+    UNet site of path 6 (B = 2, 8 frames of 64x64, C = 256; bf16, random
+    weights) forward and its input gradient with the kernels (the temporal
+    resblock) against the plain route; then LearnablePropagation (in 4, mid
+    256, 2 blocks; fp32) on a 5-frame 48x80 latent clip with flows at 4x
+    against the same module on the CPU."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    dev = torch.device("cuda")
+    b, t, h, w, c = A7_SITE
+    with torch.device("meta"):
+        tm = TemporalModule3D(c, 4 * c, 32, attention_block_types=("Temporal", "Temporal"))
+    tm = init_random_(tm.to_empty(device=dev), gen).to(torch.bfloat16)
+    x = torch.randn(A7_SITE, generator=gen, device=dev).to(torch.bfloat16)
+    temb = torch.randn((b, 4 * c), generator=gen, device=dev).to(torch.bfloat16)
+    steps = torch.full((b,), 500, device=dev)
+    g = torch.randn(x.shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    def run():
+        xi = x.detach().requires_grad_()
+        out = tm(xi, temb, timesteps=steps)
+        grad, = torch.autograd.grad(out, xi, g)
+        return out.float(), grad.float()
+
+    _cuda.reset_launch_counts()
+    (k_out, k_grad), k_s = timed_steps(lambda i: run(), 1)[0][:2]
+    launches, shapes = dict(_cuda.LAUNCHES), launch_shapes()
+    with _cuda.plain_path():
+        (p_out, p_grad), p_s = timed_steps(lambda i: run(), 1)[0][:2]
+    rel_out, rel_grad = rel_l2(k_out, p_out), rel_l2(k_grad, p_grad)
+    log(f"A7 TemporalModule3D with the attention branch, {A7_SITE}: forward and input "
+        f"gradient {k_s:.3f} s with the kernels, {p_s:.3f} s plain; relative L2 output "
+        f"{rel_out:.3e}, input gradient {rel_grad:.3e} (tol {UNET_TOL})")
+    check_launches("A7 variants", launches, shapes, ["fused_temporal_resblock"], checked)
+    if not (torch.isfinite(k_out).all() and rel_out <= UNET_TOL and rel_grad <= UNET_TOL):
+        raise AssertionError(f"A7: the attention-branch TemporalModule3D with kernels disagrees "
+                             f"with the plain route ({rel_out:.3e}, {rel_grad:.3e})")
+    del tm, x, g, k_out, k_grad, p_out, p_grad
+    cpu_gen = torch.Generator().manual_seed(13)
+    prop = init_random_(LearnablePropagation(4, 256, 2), cpu_gen).eval()
+    b, t, h, w = A7_PROP
+    lat = torch.randn((b, t, h, w, 4), generator=cpu_gen)
+    ff, fb = (torch.randn((b, t - 1, 4 * h, 4 * w, 2), generator=cpu_gen) * 2 for _ in range(2))
+    with torch.no_grad():
+        t0 = time.time()
+        want = prop(lat, ff, fb)
+        cpu_s = time.time() - t0
+        prop.to(dev)
+        (got, card_s), = [r[:2] for r in timed_steps(
+            lambda i: prop(lat.to(dev), ff.to(dev), fb.to(dev)).cpu(), 1)]
+    rel_prop = rel_l2(got, want)
+    log(f"A7 LearnablePropagation {(*A7_PROP, 4)}, mid 256: card {card_s:.3f} s, CPU {cpu_s:.2f} "
+        f"s; relative L2 card vs CPU {rel_prop:.3e} (tol {DECODE_TOL})")
+    if not (torch.isfinite(got).all() and rel_prop <= DECODE_TOL):
+        raise AssertionError(f"A7: LearnablePropagation on the card disagrees with the CPU "
+                             f"({rel_prop:.3e})")
+    return dict(module_rel_out=rel_out, module_rel_grad=rel_grad, module_seconds=k_s,
+                module_plain_seconds=p_s, propagation_rel_l2=rel_prop,
+                propagation_seconds=card_s, propagation_cpu_seconds=cpu_s, launches=launches,
+                launches_by_shape=shapes)
+
+
+def run_path7(card: str, checked):
+    """Path 7, training at released widths: the UNet's temporal finetune,
+    the video VAE's GAN step and a LoRA caption step; then the A7 variants'
+    card check. Returns the record; its launches are those of the batch's
+    encoder, the UNet steps, the GAN step and the variants."""
+    t0 = time.time()
+    unet = run_path7_unet(card, checked)
+    gan = run_path7_gan(card, checked)
+    cap = run_path7_lora()
+    variants = run_variants(checked)
+    launches = {k: unet["data_launches"][k] + unet["launches"][k] + gan["launches"][k]
+                + variants["launches"][k] for k in _cuda.KERNELS}
+    by_shape = {}
+    for part in (unet["data_launches_by_shape"], unet["launches_by_shape"],
+                 gan["launches_by_shape"], variants["launches_by_shape"]):
+        for k, by in part.items():
+            for shape, n in by.items():
+                by_shape.setdefault(k, {})[shape] = by_shape.get(k, {}).get(shape, 0) + n
+    return dict(unet=unet, gan=gan, lora=cap, variants=variants, launches=launches,
+                launches_by_shape=by_shape, seconds=time.time() - t0)
+
+
 class CountingPipeline:
     """A pipeline that counts its calls and keeps their outputs."""
 
@@ -2302,9 +2865,11 @@ def main() -> int:
     phase("kernels")
     only = set(sys.argv[sys.argv.index("--only") + 1].split(",")) if "--only" in sys.argv else None
     recs = check_kernels(only)
+    phase("kernels: backward through each wrapper")
+    backward = check_backward(only)
     if only:
         with open("chiprun_out/chip_smoke_only.json", "w") as f:
-            json.dump({"card": card, "kernels": recs}, f, indent=1)
+            json.dump({"card": card, "kernels": recs, "backward": backward}, f, indent=1)
         phase(f"done: {len(recs)} checks of {sorted(only)} (no paths run)")
         return 0
     checked = {(r["name"], json.dumps(r["shape"])) for r in recs}
@@ -2363,6 +2928,17 @@ def main() -> int:
         del llava
         torch.cuda.empty_cache()
 
+    if "7" in wanted:
+        phase("path 7: training at released widths (UNet temporal finetune, VAE GAN step, "
+              "LoRA caption step)")
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"held on the card before path 7 (its peaks include it): "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+            f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
+        paths["path7"] = run_path7(card, checked)
+        torch.cuda.empty_cache()
+
     by_key = {(r["name"], json.dumps(r["shape"])): r for r in recs}
     for name, p in paths.items():  # fault C1 in one run: the kernels against the plain route
         # one call's launches (paths 1-2: the host call's; each path's count is one loop's)
@@ -2376,7 +2952,7 @@ def main() -> int:
             f"{plain:.3f} s ({each}); e2e {p['seconds']:.2f} s{route}")
     with open("chiprun_out/chip_smoke_kernels.json", "w") as f:
         json.dump({"card": card, "steps": STEPS, "build_seconds": build_secs, "paths": paths,
-                   "path5": path5, "kernels": recs}, f, indent=1)
+                   "path5": path5, "kernels": recs, "backward": backward}, f, indent=1)
     if wanted != set(ALL_PATHS):
         phase(f"done: paths {sorted(wanted)} only (no result line; records in "
               f"chiprun_out/chip_smoke_kernels.json), whole script {time.time() - T0:.1f} s")
@@ -2390,12 +2966,14 @@ def main() -> int:
         src, replaces = SOURCES[name]
         by_path = {p: v["launches"][name] + v.get("extra_launches", {}).get(name, 0)
                    for p, v in paths.items()}
+        bw = next(b for b in backward if b["name"] == name)
         kernels.append(dict(name=name, route="cuda", source=src, replaces=replaces,
                             launches=sum(by_path.values()), launches_by_path=by_path,
                             max_abs_err=r["max_abs_err"], ms=r["ms"],
                             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                             bound_by=r["bound_by"], library_ms=r["library_ms"],
-                            shape=r["shape"]))
+                            shape=r["shape"], backward_shape=bw["shape"],
+                            backward_bit_equal=bw["bit_equal"]))
     phase(f"done (build {build_secs:.1f} s, whole script {time.time() - T0:.1f} s)")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

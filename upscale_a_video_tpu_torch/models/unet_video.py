@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..config import UNetVideoConfig
 from ..nn.blocks import GroupNorm, InflatedConv, TimestepEmbedding
@@ -29,9 +30,15 @@ def _per_row(v, b: int, device) -> torch.Tensor:
 
 
 class UNetVideoModel(nn.Module):
-    def __init__(self, config: UNetVideoConfig = UNetVideoConfig()):
+    """``use_remat`` (JAX ``use_remat``, ``_maybe_remat``): under autograd
+    each down, mid and up block and each TemporalModule3D is recomputed on
+    the backward pass (``torch.utils.checkpoint``, non-reentrant) instead of
+    keeping its activations; its kernels then launch twice a step."""
+
+    def __init__(self, config: UNetVideoConfig = UNetVideoConfig(), use_remat: bool = False):
         super().__init__()
         cfg = self.config = config
+        self.use_remat = use_remat
         boc = cfg.block_out_channels
         temb = boc[0] * 4
         groups = min(32, cfg.norm_num_groups)
@@ -132,6 +139,13 @@ class UNetVideoModel(nn.Module):
                                          for _ in range(cfg.layers_per_block + 1))
         return cache
 
+    def _block(self, block, *args):
+        """``block(*args)``, rematerialised under :attr:`use_remat` when
+        autograd records."""
+        if self.use_remat and torch.is_grad_enabled():
+            return checkpoint(block, *args, use_reentrant=False)
+        return block(*args)
+
     def forward(self, sample, timestep, low_res, encoder_hidden_states, class_labels,
                 attn_cache=None, use_flags=None, cfg_dup: bool = False):
         """sample (B, T, H, W, 4), low_res (B, T, H, W, 3), encoder_hidden_states
@@ -168,24 +182,25 @@ class UNetVideoModel(nn.Module):
                 if not tiled:
                     x, emb, res, tiled = dup(x), dup(emb), tuple(dup(r) for r in res), True
                 if attn_cache is not None and f"down_{i}" in attn_cache:
-                    x, states, new_cache[f"down_{i}"] = block(x, emb, ctx, attn_cache[f"down_{i}"],
-                                                              use_flags)
+                    x, states, new_cache[f"down_{i}"] = self._block(
+                        block, x, emb, ctx, attn_cache[f"down_{i}"], use_flags)
                 else:
-                    x, states = block(x, emb, ctx)
+                    x, states = self._block(block, x, emb, ctx)
             else:
-                x, states = block(x, emb)
+                x, states = self._block(block, x, emb)
             res += states
             if str(i) in self.down_temp_blocks:
-                x = self.down_temp_blocks[str(i)](x, emb)
+                x = self._block(self.down_temp_blocks[str(i)], x, emb)
 
         if not tiled:
             x, emb, res = dup(x), dup(emb), tuple(dup(r) for r in res)
         if attn_cache is not None and "mid" in attn_cache:
-            x, new_cache["mid"] = self.mid_block(x, emb, ctx, attn_cache["mid"], use_flags)
+            x, new_cache["mid"] = self._block(self.mid_block, x, emb, ctx, attn_cache["mid"],
+                                              use_flags)
         else:
-            x = self.mid_block(x, emb, ctx)
+            x = self._block(self.mid_block, x, emb, ctx)
         if self.mid_temp_block is not None:
-            x = self.mid_temp_block(x, emb)
+            x = self._block(self.mid_temp_block, x, emb)
 
         n = len(self.up_blocks)
         for i, block in enumerate(self.up_blocks):
@@ -194,14 +209,14 @@ class UNetVideoModel(nn.Module):
             size = tuple(res[-1].shape[2:4]) if i != n - 1 and res else None
             if isinstance(block, CrossAttnUpBlock3D) and attn_cache is not None \
                     and f"up_{i}" in attn_cache:
-                x, new_cache[f"up_{i}"] = block(x, states, emb, ctx, size, attn_cache[f"up_{i}"],
-                                                use_flags)
+                x, new_cache[f"up_{i}"] = self._block(block, x, states, emb, ctx, size,
+                                                      attn_cache[f"up_{i}"], use_flags)
             elif isinstance(block, CrossAttnUpBlock3D):
-                x = block(x, states, emb, ctx, size)
+                x = self._block(block, x, states, emb, ctx, size)
             else:
-                x = block(x, states, emb, size)
+                x = self._block(block, x, states, emb, size)
             if str(i) in self.up_temp_blocks:
-                x = self.up_temp_blocks[str(i)](x, emb)
+                x = self._block(self.up_temp_blocks[str(i)], x, emb)
 
         x = self.conv_out(F.silu(self.conv_norm_out(x)))
         return x if attn_cache is None else (x, new_cache)

@@ -125,6 +125,37 @@ class TemporalAttention(nn.Module):
         return self.to_out[0](out.reshape(b, t, h * d))
 
 
+class SparseCausalAttention(nn.Module):
+    """Self-attention whose keys and values are the tokens of frame 0 and of
+    the previous frame (ref attention.py:567-623; JAX ``nn/attention.py:170``),
+    off in the released config (``use_first_frame=false``). x: (B·F, S, C)."""
+
+    def __init__(self, query_dim: int, heads: int = 8, dim_head: int = 64):
+        super().__init__()
+        inner = heads * dim_head
+        self.heads, self.dim_head = heads, dim_head
+        self.to_q = nn.Linear(query_dim, inner, bias=False)
+        self.to_k = nn.Linear(query_dim, inner, bias=False)
+        self.to_v = nn.Linear(query_dim, inner, bias=False)
+        self.to_out = nn.ModuleList([nn.Linear(inner, query_dim)])
+
+    def forward(self, x: torch.Tensor, video_length: int) -> torch.Tensor:
+        bf, s, _ = x.shape
+        b = bf // video_length
+        former = torch.clamp(torch.arange(video_length, device=x.device) - 1, min=0)
+        first = torch.zeros_like(former)
+
+        def causal(t):
+            t = t.reshape(b, video_length, s, -1)
+            return torch.cat([t[:, first], t[:, former]], dim=2).reshape(bf, 2 * s, -1)
+
+        q = _split_heads(self.to_q(x), self.heads)
+        k = _split_heads(causal(self.to_k(x)), self.heads)
+        v = _split_heads(causal(self.to_v(x)), self.heads)
+        out = attention(q, k, v, self.dim_head ** -0.5)
+        return self.to_out[0](_merge_heads(out))
+
+
 class GEGLU(nn.Module):
     def __init__(self, dim: int, dim_out: int):
         super().__init__()

@@ -9,7 +9,7 @@ the temporal resblock goes to the fused kernel where its gate holds.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -19,6 +19,22 @@ from ..ops import _cuda
 from ..ops.fused_feedforward import layer_norm
 from ..ops.fused_groupnorm import fused_group_norm, fused_group_norm_fits, group_norm_plain
 from ..ops.fused_temporal_resblock import fused_resblock_fits, fused_temporal_resblock
+
+
+def mish(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.tanh(F.softplus(x))
+
+
+def get_activation(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The reference's activations by name (JAX ``nn/blocks.py:43-55``):
+    swish/silu, mish, gelu (tanh form, jax.nn.gelu's default)."""
+    if name in ("swish", "silu"):
+        return F.silu
+    if name == "mish":
+        return mish
+    if name == "gelu":
+        return lambda x: F.gelu(x, approximate="tanh")
+    raise ValueError(f"unknown activation {name!r}")
 
 
 class GroupNorm(nn.Module):

@@ -1,9 +1,9 @@
 """Build, load and account for the port's hand-written CUDA kernels.
 
-All ``csrc/*.cu`` sources are compiled by ONE ``nvcc`` call into one shared
-library with a plain C interface (no PyTorch headers, so the build takes
-seconds), at first use, into ``upscale_a_video_tpu_torch/_build/``. The
-library's name carries a hash of the sources, so an unchanged tree never
+All ``csrc/*.cu`` sources are compiled at first use, one ``nvcc`` process
+per source, all started together, and linked into one shared library with a
+plain C interface (no PyTorch headers) in ``upscale_a_video_tpu_torch/_build/``.
+The library's name carries a hash of the sources, so an unchanged tree never
 rebuilds. Entry points are bound with ``ctypes``; each returns
 ``cudaGetLastError()`` and :func:`check` raises on anything but 0.
 
@@ -30,8 +30,8 @@ import torch
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17", "-shared",
-              "-Xcompiler", "-fPIC", "-lineinfo"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-lineinfo"]
 
 KERNELS = ("temporal_attention_block", "fused_temporal_resblock", "cross_attention_block",
            "fused_feedforward", "flash_attention", "fused_temporal_attention",
@@ -85,23 +85,43 @@ def find_nvcc() -> str:
 
 
 def build(verbose: bool = False) -> Path:
-    """Compile every ``csrc/*.cu`` with one nvcc call unless this exact
-    source set is already built. Returns the library path."""
+    """Compile every ``csrc/*.cu`` (one ``nvcc -c`` process per source, run
+    at once) and link the objects into the library, unless this exact source
+    set is already built. Returns the library path; the compilers' output
+    (with ``verbose``, ptxas's ``-v`` report) is printed in source order."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cus = [str(p) for p in sorted(CSRC.glob("*.cu"))]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []), "-o", tmp, *cus]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if verbose or proc.returncode:
-        print(proc.stdout + proc.stderr, flush=True)
-    if proc.returncode:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}")
-    os.replace(tmp, out)
+    nvcc = find_nvcc()
+    work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    try:
+        jobs = []
+        for cu in sorted(CSRC.glob("*.cu")):
+            obj = work / f"{cu.stem}.o"
+            cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []), "-c", "-o",
+                   str(obj), str(cu)]
+            jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                    stderr=subprocess.STDOUT, text=True)))
+        failed = []
+        for cmd, _, proc in jobs:
+            text = proc.communicate()[0]
+            if verbose or proc.returncode:
+                print(text, flush=True)
+            if proc.returncode:
+                failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}")
+        if failed:
+            raise RuntimeError("; ".join(failed))
+        tmp = work / "lib.so"
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *(str(o) for _, o, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if verbose or proc.returncode:
+            print(proc.stdout + proc.stderr, flush=True)
+        if proc.returncode:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}): {' '.join(cmd)}")
+        os.replace(tmp, out)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return out
 
 
@@ -228,6 +248,51 @@ def weight(t: torch.Tensor, dtype: torch.dtype, name: str) -> torch.Tensor:
     """A weight as a kernel operand (:func:`operand`), converted once per
     version of the weight (:func:`cached`)."""
     return cached(t, f"operand:{dtype}", lambda w: operand(w.to(dtype), dtype, name))
+
+
+class ViaPlain(torch.autograd.Function):
+    """A kernel's call made differentiable as JAX's custom VJPs make the
+    Pallas kernels (``upscale_a_video_tpu/ops/*.py``, ``jax.custom_vjp``):
+    the forward runs the kernel on the caller's tensors with autograd off
+    and saves them (the parameters themselves, not the kernel's operand
+    copies); the backward re-runs the kernel's plain PyTorch version on the
+    saved tensors under autograd and returns ``torch.autograd.grad`` of it.
+    Arguments that are not tensors pass through (sizes, flags, None)."""
+
+    @staticmethod
+    def forward(ctx, kernel, plain, *args):
+        ctx.plain = plain
+        ctx.tensor_at = [i for i, a in enumerate(args) if isinstance(a, torch.Tensor)]
+        ctx.others = [None if isinstance(a, torch.Tensor) else a for a in args]
+        ctx.save_for_backward(*(args[i] for i in ctx.tensor_at))
+        return kernel(*args)
+
+    @staticmethod
+    def backward(ctx, grad):
+        args = list(ctx.others)
+        needs = ctx.needs_input_grad[2:]
+        wrt = [i for i in ctx.tensor_at if needs[i]]
+        grads = [None] * len(args)
+        with torch.enable_grad():
+            for i, t in zip(ctx.tensor_at, ctx.saved_tensors):
+                args[i] = t.detach().requires_grad_(needs[i])
+            out = ctx.plain(*args)
+            got = torch.autograd.grad(out, [args[i] for i in wrt], grad, allow_unused=True)
+        for i, g in zip(wrt, got):
+            grads[i] = g
+        return (None, None, *grads)
+
+
+def differentiable(kernel: Callable, plain: Callable, *args):
+    """``kernel(*args)``; through :class:`ViaPlain` when autograd records
+    (grad mode on and some tensor argument requires grad), so that a
+    backward pass reaches the arguments through ``plain(*args)``. Under
+    ``no_grad`` (the pipeline, a captured loop) the kernel is called as it
+    is and nothing is saved."""
+    if torch.is_grad_enabled() and any(isinstance(a, torch.Tensor) and a.requires_grad
+                                       for a in args):
+        return ViaPlain.apply(kernel, plain, *args)
+    return kernel(*args)
 
 
 @contextlib.contextmanager

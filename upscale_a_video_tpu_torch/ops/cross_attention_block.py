@@ -66,8 +66,11 @@ def cross_attention_block_plain(x, ln_w, ln_b, m, vo, skv: int, bo, t_repeat: in
     hk = m.shape[-1]
     heads = hk // kp
     hn = layer_norm(x, ln_w, ln_b, eps)
-    m_rep = m.repeat_interleave(t_repeat, dim=0).to(x.dtype)
-    vo_rep = vo.repeat_interleave(t_repeat, dim=0).to(x.dtype)
+    # each clip's keys for its T frames: a broadcast, whose backward is a sum
+    # in a fixed order (repeat_interleave's adds atomically on the card)
+    rep = lambda a: a[:, None].expand(a.shape[0], t_repeat, *a.shape[1:]).reshape(
+        -1, *a.shape[1:]).to(x.dtype)
+    m_rep, vo_rep = rep(m), rep(vo)
     scores = torch.matmul(hn.float(), m_rep.float()).reshape(bt, s, heads, kp)
     valid = torch.arange(kp, device=x.device) < skv
     scores = scores.masked_fill(~valid, float("-inf"))
@@ -91,7 +94,11 @@ def cross_attention_block_fits(x: torch.Tensor, skv: int, heads: int, dim_head: 
 def fused_cross_attention_block(x, ln_w, ln_b, wq, k, v, wo, bo, *, heads: int, dim_head: int,
                                 t_repeat: int, eps: float = 1e-5, add_residual: bool = False):
     """x: (B·T, S, C) pre-norm tokens; k/v: (B, Skv, H·D) projected text keys
-    and values (not repeated per frame). Returns the delta, or x + delta."""
+    and values (not repeated per frame). Returns the delta, or x + delta.
+    Differentiable: the fold runs under autograd outside the kernel's call,
+    whose backward is the plain version's on the folded M and Vo
+    (``_cuda.differentiable``), as JAX's VJP differentiates with respect to
+    M and Vo (``cross_attention_block.py:155``)."""
     bt, s, c = x.shape
     b, skv, _ = k.shape
     if bt != b * t_repeat:
@@ -103,9 +110,23 @@ def fused_cross_attention_block(x, ln_w, ln_b, wq, k, v, wo, bo, *, heads: int, 
     if not cross_attention_block_fits(x, skv, heads, dim_head):
         raise ValueError(f"cross_attention_block: unsupported x {tuple(x.shape)} {x.dtype}, "
                          f"{skv} keys, {heads} x {dim_head} heads")
+    mt, vo = fold_keys(wq, k, v, wo, heads, dim_head)
+    return _cuda.differentiable(_launch, folded_plain, x, ln_w, ln_b, mt, vo, bo, t_repeat, eps,
+                                add_residual)
+
+
+def folded_plain(x, ln_w, ln_b, mt, vo, bo, t_repeat, eps, add_residual):
+    """The plain version on :func:`fold_keys`' Mt and Vo (H, B, Skv, C)."""
+    m, vo_tiles = key_tiles(mt, vo, SKV_PAD)
+    return cross_attention_block_plain(x, ln_w, ln_b, m, vo_tiles, mt.shape[2], bo, t_repeat,
+                                       eps, add_residual)
+
+
+def _launch(x, ln_w, ln_b, mt, vo, bo, t_repeat, eps, add_residual):
+    bt, s, c = x.shape
+    heads, _, skv, _ = mt.shape
     bf = torch.bfloat16
-    mt, vo = (_cuda.tma_operand(a, n)
-              for a, n in zip(fold_keys(wq, k, v, wo, heads, dim_head), ("mt", "vo")))
+    mt, vo = _cuda.tma_operand(mt, "mt"), _cuda.tma_operand(vo, "vo")
     xf = _cuda.tma_operand(x, "x")
     lnw, lnb, bof = (_cuda.weight(t, bf, n) for t, n in ((ln_w, "ln_w"), (ln_b, "ln_b"),
                                                           (bo, "bo")))

@@ -60,9 +60,15 @@ def f32_value_layout(v: torch.Tensor) -> torch.Tensor:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
     """q: (..., Sq, D), k/v: (..., Sk, D) → (..., Sq, D) in q.dtype (bf16 or
-    fp32, the kernel of that operand type)."""
+    fp32, the kernel of that operand type). Differentiable: the backward is
+    the plain version's (``_cuda.differentiable``), whose fp32 scores
+    (..., Sq, Sk) it materialises, as JAX's VJP does."""
     if not q.is_cuda:
         return attention_plain(q, k, v, scale)
+    return _cuda.differentiable(_launch, attention_plain, q, k, v, scale)
+
+
+def _launch(q, k, v, scale):
     *batch, sq, d = q.shape
     sk = k.shape[-2]
     if d % 16 or d > 512:

@@ -47,9 +47,15 @@ def feedforward_fits(x: torch.Tensor) -> bool:
 
 def fused_feedforward(x, ln_w, ln_b, w1, b1, w2, b2, eps: float = 1e-5,
                       add_residual: bool = False):
-    """x: (..., C) pre-norm tokens → FF delta, or x + delta with ``add_residual``."""
+    """x: (..., C) pre-norm tokens → FF delta, or x + delta with ``add_residual``.
+    Differentiable: the backward is the plain version's (``_cuda.differentiable``)."""
     if not x.is_cuda:
         return fused_feedforward_plain(x, ln_w, ln_b, w1, b1, w2, b2, eps, add_residual)
+    return _cuda.differentiable(_launch, fused_feedforward_plain, x, ln_w, ln_b, w1, b1, w2, b2,
+                                eps, add_residual)
+
+
+def _launch(x, ln_w, ln_b, w1, b1, w2, b2, eps, add_residual):
     if not feedforward_fits(x):
         raise ValueError(f"fused_feedforward: unsupported x {tuple(x.shape)} {x.dtype}")
     c = x.shape[-1]

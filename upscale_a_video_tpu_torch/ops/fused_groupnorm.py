@@ -137,9 +137,15 @@ def fused_group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                      num_groups: int, eps: float = 1e-6,
                      act: Optional[str] = "silu") -> torch.Tensor:
     """x: (N, ..., C); weight, bias: (C,). GroupNorm (+ SiLU with
-    ``act="silu"``) over all non-channel axes of each sample."""
+    ``act="silu"``) over all non-channel axes of each sample.
+    Differentiable: the backward is the plain version's
+    (``_cuda.differentiable``)."""
     if not x.is_cuda:
         return group_norm_plain(x, weight, bias, num_groups, eps, act)
+    return _cuda.differentiable(_launch, group_norm_plain, x, weight, bias, num_groups, eps, act)
+
+
+def _launch(x, weight, bias, num_groups, eps, act):
     if not fused_group_norm_fits(x, num_groups, act):
         raise ValueError(f"fused_group_norm: unsupported input {tuple(x.shape)} {x.dtype}, "
                          f"groups={num_groups}, act={act!r}")

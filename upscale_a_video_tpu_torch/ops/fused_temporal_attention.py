@@ -57,9 +57,14 @@ def group_lanes(d: int) -> int:
 def fused_temporal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q/k/v: (B', T, H, D), scale pre-applied to q; bias: (H, T, T) or None.
-    Returns (B', T, H, D)."""
+    Returns (B', T, H, D). Differentiable: the backward is the plain
+    version's (``_cuda.differentiable``)."""
     if not q.is_cuda:
         return temporal_attention_plain(q, k, v, bias)
+    return _cuda.differentiable(_launch, temporal_attention_plain, q, k, v, bias)
+
+
+def _launch(q, k, v, bias):
     bp, t, h, d = q.shape
     if k.shape != q.shape or v.shape != q.shape or not fused_temporal_attention_fits(q):
         raise ValueError(f"fused_temporal_attention: unsupported q/k/v {tuple(q.shape)}, "

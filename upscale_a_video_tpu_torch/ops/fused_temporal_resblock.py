@@ -141,10 +141,17 @@ def fused_temporal_resblock(x, n1_w, n1_b, w1, b1, temb_proj, n2_w, n2_b, w2, b2
                             groups: int, groups2: Optional[int] = None, eps: float = 1e-6):
     """x: (B, T, H, W, C); w1: (C, C, k, 1, 1); w2: (C, C, 3, 1, 1);
     temb_proj: (B, C) or None. Matches ``_ResnetCore`` with the temporal
-    convs and in == out channels (ref resnet.py:297-393)."""
+    convs and in == out channels (ref resnet.py:297-393). Differentiable:
+    the backward is the plain version's (``_cuda.differentiable``), temb_proj
+    included."""
     if not x.is_cuda:
         return fused_temporal_resblock_plain(x, n1_w, n1_b, w1, b1, temb_proj, n2_w, n2_b,
                                              w2, b2, groups, eps, groups2)
+    return _cuda.differentiable(_launch, fused_temporal_resblock_plain, x, n1_w, n1_b, w1, b1,
+                                temb_proj, n2_w, n2_b, w2, b2, groups, eps, groups2)
+
+
+def _launch(x, n1_w, n1_b, w1, b1, temb_proj, n2_w, n2_b, w2, b2, groups, eps, groups2):
     g2 = groups2 or groups
     b, t, hh, ww, c = x.shape
     hw = hh * ww

@@ -86,10 +86,17 @@ def fused_temporal_attention_block(x, ln_w, ln_b, wq, wk, wv, wo, bo, bias_htt, 
                                    add_residual: bool = False):
     """x: (B·T, S, C) pre-norm tokens; wq/wk/wv/wo torch Linear weights
     (C, C), no q/k/v bias; bias_htt: (H, T, T). Returns the delta, or
-    x + delta with ``add_residual``."""
+    x + delta with ``add_residual``. Differentiable: the backward is the
+    plain version's (``_cuda.differentiable``), the T5 bias included."""
     if not x.is_cuda:
         return temporal_attention_block_plain(x, ln_w, ln_b, wq, wk, wv, wo, bo, bias_htt,
                                               video_length, rot_dim, eps, add_residual)
+    return _cuda.differentiable(_launch, temporal_attention_block_plain, x, ln_w, ln_b, wq, wk,
+                                wv, wo, bo, bias_htt, video_length, rot_dim, eps, add_residual)
+
+
+def _launch(x, ln_w, ln_b, wq, wk, wv, wo, bo, bias_htt, video_length, rot_dim, eps,
+            add_residual):
     bt, s, c = x.shape
     t = video_length
     heads = bias_htt.shape[0]

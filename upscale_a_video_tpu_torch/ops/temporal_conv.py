@@ -55,9 +55,14 @@ def temporal_conv_fits(x: torch.Tensor, weight: torch.Tensor) -> bool:
 def temporal_conv(x: torch.Tensor, weight: torch.Tensor,
                   bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x: (B, T, H, W, Cin); weight: (Cout, Cin, k, 1, 1); bias: (Cout,) or
-    None. Returns (B, T, H, W, Cout) in x.dtype."""
+    None. Returns (B, T, H, W, Cout) in x.dtype. Differentiable: the
+    backward is the plain version's (``_cuda.differentiable``)."""
     if not x.is_cuda:
         return temporal_conv_plain(x, weight, bias)
+    return _cuda.differentiable(_launch, temporal_conv_plain, x, weight, bias)
+
+
+def _launch(x, weight, bias):
     if not temporal_conv_fits(x, weight):
         raise ValueError(f"temporal_conv: unsupported x {tuple(x.shape)} {x.dtype}, "
                          f"weight {tuple(weight.shape)}")

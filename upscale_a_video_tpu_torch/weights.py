@@ -13,7 +13,11 @@ inner ``conv`` wrapper segment are dropped; ``kernel``/``scale``/``embedding``
 → ``weight``, with kernels transposed HWIO→OIHW, DHWIO→OIDHW, (I,O)→(O,I).
 :func:`raft_state_dict` gives a RAFT tree ``raft-things.pth``'s key names
 (the inverse of ``upscale_a_video_tpu/models/raft.py:470``),
-:func:`llava_state_dict` a LLaVA tree the released checkpoints' keys.
+:func:`llava_state_dict` a LLaVA tree the released checkpoints' keys,
+:func:`discriminator_state_dict` the VAE finetune's PatchGAN and
+:func:`propagator_state_dict` the learnable propagator (the reference's
+module names; a deformable conv's 4-D ``weight``/``dcn_weight`` param is
+transposed HWIO→OIHW like a kernel).
 """
 
 from __future__ import annotations
@@ -76,6 +80,8 @@ def torch_key(path: Tuple[str, ...], renames: Optional[Mapping[str, str]] = None
 
 
 def _perm(path: Tuple[str, ...], ndim: int):
+    if path[-1] in ("weight", "dcn_weight") and ndim == 4:
+        return 3, 2, 0, 1  # a deformable conv's HWIO weight (a flax param, not a kernel)
     if path[-1] != "kernel":
         return None
     return {2: (1, 0), 4: (3, 2, 0, 1), 5: (4, 3, 0, 1, 2)}.get(ndim)
@@ -141,6 +147,31 @@ def llava_state_dict(flat: Mapping[Tuple[str, ...], np.ndarray],
     from .models.llava.convert import LLAVA_MPT_RENAMES, LLAVA_RENAMES
 
     return to_state_dict(flat, LLAVA_MPT_RENAMES if mpt else LLAVA_RENAMES)
+
+
+# the learnable propagator (``models/propagation_learnable.py``): its
+# per-direction modules and the residual stacks' ``main`` as the reference's
+# ModuleDicts and Sequentials
+PROPAGATOR_RENAMES = {
+    "deform_align_backward_prop.": "deform_align.backward_prop.",
+    "deform_align_forward_prop.": "deform_align.forward_prop.",
+    "backbone_backward_prop.": "backbone.backward_prop.",
+    "backbone_forward_prop.": "backbone.forward_prop.",
+    ".main_2.": ".main.2.",
+}
+
+
+def propagator_state_dict(flat: Mapping[Tuple[str, ...], np.ndarray]) -> Dict[str, torch.Tensor]:
+    """A JAX ``LearnablePropagation`` tree → the port's (reference key
+    names; the deformable convs' HWIO ``weight`` → OIHW)."""
+    return to_state_dict(flat, PROPAGATOR_RENAMES)
+
+
+def discriminator_state_dict(flat: Mapping[Tuple[str, ...], np.ndarray]) -> Dict[str, torch.Tensor]:
+    """A JAX ``PatchDiscriminator`` tree (``training/train_vae.py``) → the
+    port's: ``conv_in``/``conv_i``/``conv_out`` kernels HWIO → OIHW,
+    ``norm_i`` GroupNorm scale and bias → ``norm.i.weight``/``.bias``."""
+    return to_state_dict(flat)
 
 
 @torch.no_grad()
