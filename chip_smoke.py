@@ -17,7 +17,9 @@ Phases (each announced on a flushed line with the seconds elapsed):
               of the sites they would serve: the conv at every resblock conv
               of both paths, with the site's k and with k = 3): error, time,
               plain time, PyTorch library time where one call computes the
-              same function, and the card's bound; for every kernel and its
+              same function, and the card's bound (beside its hand count of
+              operations, the plain version's products as FlopCounterMode
+              counts them; gaps over 1 % are logged); for every kernel and its
               library call also the GPU time alone, replayed from a CUDA
               graph; for the cross-attention also its fold (M and Vo) alone.
               The fused temporal attention and the GroupNorm are also held at
@@ -197,6 +199,26 @@ Phases (each announced on a flushed line with the seconds elapsed):
               kernels against the plain route; LearnablePropagation (mid 256)
               on the card against the CPU (relative L2 1e-2).
 
+ 11. path 8   the multi-GPU package (``parallel/``) at world size 1: an NCCL
+              group of one rank on the card (tcp://127.0.0.1, a free port);
+              ShardedVideoUpscalePipeline over path 1's pipeline on path 1's
+              clip (64x64x14 -> 256x256, 3D VAE, CFG 6, 30 steps) against the
+              single-device pipeline (host loop) on the same latents and
+              LR noise: frames within relative L2 5e-2 (the UNet's gate), the
+              max difference, frames/s and peak memory of both, kernels 1-5
+              launched at checked shapes; then build_sharded_decode,
+              build_sharded_flows (RAFT on path 2's clip) and
+              distributed_propagate_latents (RAFT's flows and a whole-pixel
+              shift) bit-equal to the serial decode, flows and propagation;
+              the group destroyed. The exchanges between ranks are held by
+              the CPU tests at 2 and 4 ranks (gloo), not here.
+
+After each path the cyclic collector runs with ``DEBUG_SAVEALL`` and the
+script logs the port's objects it found, their CUDA tensors and the
+allocated memory the collection freed (fault C8: path 6, run with the
+collector off, must leave nothing in cycles; its memory after each request
+must stay flat once R2's graph is held).
+
 It exits non-zero, printing no result, without a CUDA device. Any failure
 raises. The last line is the JSON result; the two lines before it are the
 kernels' JSON record and the card's ``nvidia-smi`` name and power limit.
@@ -221,6 +243,7 @@ import json
 import os
 import re
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -231,6 +254,7 @@ import urllib.request
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from upscale_a_video_tpu_torch import captioner, cli
@@ -264,6 +288,8 @@ from upscale_a_video_tpu_torch.ops.temporal_attention_block import (
     fused_temporal_attention_block, temporal_attention_block_plain)
 from upscale_a_video_tpu_torch.ops.temporal_conv import temporal_conv, temporal_conv_plain
 from upscale_a_video_tpu_torch.ops.warp import flow_warp
+from upscale_a_video_tpu_torch.parallel import (ShardedVideoUpscalePipeline, build_sharded_decode,
+                                                build_sharded_flows, distributed_propagate_latents)
 from upscale_a_video_tpu_torch.pipeline import (PABConfig, chunk_starts, load_pipeline,
                                                  random_pipeline)
 from upscale_a_video_tpu_torch.pipeline import graphs
@@ -281,7 +307,8 @@ from upscale_a_video_tpu_torch.training.train_llava import make_caption_lora_ste
 from upscale_a_video_tpu_torch.training.train_unet import (diffusion_loss, draw_noise,
                                                            init_optimizer, make_train_step)
 from upscale_a_video_tpu_torch.training.train_vae import PatchDiscriminator, vae_training_losses
-from upscale_a_video_tpu_torch.utils import native_frameproc, quant, video_io
+from upscale_a_video_tpu_torch.utils import native_frameproc, profiling, quant, video_io
+from upscale_a_video_tpu_torch.utils.flops import flops_of
 from upscale_a_video_tpu_torch.utils.lpips import LPIPS, load_lpips
 from upscale_a_video_tpu_torch.utils.metrics import psnr, ssim
 from upscale_a_video_tpu_torch.utils.stream import FrameRing
@@ -389,8 +416,9 @@ DEVICE_KERNELS = (("cab_kernel", "cross_attention_block"),
                   ("K2Epilogue", "fused_temporal_resblock"),
                   ("gn_", "fused_temporal_resblock"),
                   ("fta_", "fused_temporal_attention"),
-                  ("flash_wgmma_kernel", "flash_attention"))
-ALL_PATHS = ("1", "2", "3", "4", "5", "6", "7")
+                  ("flash_wgmma_kernel", "flash_attention"),
+                  ("flash_tf32x3_kernel", "flash_attention"))
+ALL_PATHS = ("1", "2", "3", "4", "5", "6", "7", "8")
 # path 7: a UNet forward's launches at T = 8 without CFG rows (as path 1's
 # forward: 16 transformer blocks, 16 temporal resblocks at C <= 512, 20
 # text cross-attentions at C = 512); remat runs each forward twice
@@ -512,7 +540,7 @@ def trace_ms(fn, calls: int = 5):
     kernel)."""
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+    with profiling.trace(None, host=False) as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
@@ -538,12 +566,15 @@ def compare(name, shape, kern, plain, nbytes_, flops, library=None, peak=PEAK_FL
     err = (out.float() - ref.float()).abs().max().item()
     rel = err / max(ref.float().abs().max().item(), 1e-30)
     del out, ref
+    counted = flops_of(plain) or 0.0  # the plain version's products, as FlopCounterMode counts
     replays = min(reps, 5)
     ms, plain_ms = cuda_ms(kern, reps), cuda_ms(plain, reps)
     lib_ms = cuda_ms(library, reps) if library is not None else None
     b_ms, b_by = bound_ms(nbytes_, flops, peak)
     rec = dict(name=name, shape=shape, max_abs_err=err, rel_err=rel, tol=tol, ms=ms,
                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+               hand_flops=flops, counted_flops=counted,
+               flops_gap=(counted - flops) / flops if flops else None,
                graph_ms=graph_ms(kern, graph_calls, replays),
                library_graph_ms=(graph_ms(library, graph_calls, replays)
                                  if library is not None else None))
@@ -553,6 +584,60 @@ def compare(name, shape, kern, plain, nbytes_, flops, library=None, peak=PEAK_FL
     if not rel <= tol:
         raise AssertionError(f"{name} {shape}: kernel disagrees with its plain version "
                              f"(max |err| / max |ref| = {rel:.3e} > {tol})")
+    return rec
+
+
+def flop_gaps(recs) -> dict:
+    """Per kernel, the shapes at which FlopCounterMode's count of the plain
+    version's products differs from the hand count that sets ``bound_ms``
+    by more than 1 %: {name: [(shape, hand, counted, gap)]}."""
+    gaps = {}
+    for r in recs:
+        if r["flops_gap"] is None or abs(r["flops_gap"]) > 0.01:
+            gaps.setdefault(r["name"], []).append((r["shape"], r["hand_flops"],
+                                                   r["counted_flops"], r["flops_gap"]))
+    return gaps
+
+
+def collect_cycles(after: str) -> dict:
+    """The cyclic collector's catch after ``after``: with ``DEBUG_SAVEALL``
+    the unreachable objects stay in ``gc.garbage`` to be read: the port's
+    and this script's objects among them that hold CUDA tensors (by type),
+    and the CUDA tensors' bytes; then the catch is released, collected
+    again, and the allocated bytes that freed are logged (fault C8: nothing
+    of the port should wait for the collector)."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    gc.set_debug(gc.DEBUG_SAVEALL)
+    try:
+        found = gc.collect()
+        storages, holders = {}, {}
+        for o in gc.garbage:
+            if isinstance(o, torch.Tensor) and o.is_cuda:
+                storages[o.untyped_storage().data_ptr()] = o.untyped_storage().nbytes()
+                continue
+            mod = type(o).__module__ or ""
+            if not mod.startswith(("upscale_a_video_tpu_torch", "__main__", "chip_smoke")):
+                continue
+            if isinstance(o, torch.nn.Module):
+                cuda = any(t.is_cuda for t in (*o.parameters(), *o.buffers()))
+            else:
+                cuda = any(isinstance(v, torch.Tensor) and v.is_cuda
+                           for v in getattr(o, "__dict__", {}).values())
+            name = f"{mod}.{type(o).__qualname__}"
+            holders[name] = holders.get(name, 0) + int(cuda)
+    finally:
+        gc.set_debug(0)
+        gc.garbage.clear()
+    gc.collect()
+    torch.cuda.synchronize()
+    freed = before - torch.cuda.memory_allocated()
+    rec = dict(objects=found, cuda_tensor_bytes=sum(storages.values()), freed_bytes=freed,
+               port_objects=holders)
+    log(f"after {after}: the cyclic collector found {found} objects, "
+        f"{rec['cuda_tensor_bytes'] / 2**20:.1f} MiB of CUDA tensors among them; freed "
+        f"{freed / 2**20:.1f} MiB allocated; the port's objects in cycles (holding CUDA "
+        f"tensors): {json.dumps(holders)}")
     return rec
 
 
@@ -863,14 +948,12 @@ def check_backward(only=None):
 def device_split(prof):
     """Device time in seconds by port kernel (DEVICE_KERNELS) and in all, from
     a torch.profiler run with CUDA activity (kernels on one stream)."""
-    by_kernel, total = {}, 0.0
-    for e in prof.key_averages():
-        t = e.device_time_total / 1e6
-        total += t
-        name = next((k for part, k in DEVICE_KERNELS if part in e.key), "PyTorch")
-        if t:
-            by_kernel[name] = by_kernel.get(name, 0.0) + t
-    return by_kernel, total
+    by_kernel = {}
+    times = profiling.device_seconds(prof)
+    for key, t in times.items():
+        name = next((k for part, k in DEVICE_KERNELS if part in key), "PyTorch")
+        by_kernel[name] = by_kernel.get(name, 0.0) + t
+    return by_kernel, sum(times.values())
 
 
 def device_parts(prof, kernel):
@@ -878,26 +961,25 @@ def device_parts(prof, kernel):
     name part that attributes them (DEVICE_KERNELS): the temporal resblock's
     two convs (K1Epilogue, K2Epilogue) apart from its GroupNorm passes."""
     parts = {}
-    for e in prof.key_averages():
-        part, name = next(((p, k) for p, k in DEVICE_KERNELS if p in e.key), (None, None))
-        if name == kernel and e.device_time_total:
-            parts[part] = parts.get(part, 0.0) + e.device_time_total / 1e6
+    for key, t in profiling.device_seconds(prof).items():
+        part, name = next(((p, k) for p, k in DEVICE_KERNELS if p in key), (None, None))
+        if name == kernel:
+            parts[part] = parts.get(part, 0.0) + t
     return parts
 
 
 def busy_share(fn):
     """The card's kernel time during one call of ``fn``, split by port kernel
-    (:func:`device_split`), the call's wall time (host clock, synchronised),
+    (:func:`device_split`), the call's wall time (``profiling.StageTimer``:
+    host clock, synchronised on both sides),
     in seconds, the wrappers' launches in the call, and the temporal
     resblock's device time by part (:func:`device_parts`). ``fn`` must
     have run before (its lazy state made)."""
-    torch.cuda.synchronize()
     _cuda.reset_launch_counts()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
+    timer = profiling.StageTimer("cuda")
+    with profiling.trace(None, host=False) as prof, timer.stage("call"):
         fn()
-        torch.cuda.synchronize()
-        wall = time.time() - t0
+    wall = timer.stages["call"]
     by_kernel, busy = device_split(prof)
     return (busy, wall, by_kernel, {k: v for k, v in _cuda.LAUNCHES.items() if v},
             device_parts(prof, "fused_temporal_resblock"))
@@ -1994,6 +2076,8 @@ P6_LOOP = {"temporal_attention_block": 16 * STEPS, "fused_temporal_resblock": 16
            "cross_attention_block": 20 * STEPS, "fused_feedforward": 16 * STEPS}
 P6_DECODE = {"flash_attention": 3}
 P6_REL_TOL = 1e-4  # relative, the eval's metrics on the card against the CPU (fp32, TF32 off)
+P6_FLAT_MIB = 64   # growth of the allocated memory over R3-R4 after R2's capture (C8)
+CYCLE_MIB = 256    # allocated memory the cyclic collector may free after path 6 (C8)
 
 
 class InMemoryIO:
@@ -2088,6 +2172,7 @@ class ServedPredictor(Predictor):
             rec["end"] = time.time()
             rec["launches"] = {k: v - before[k] for k, v in _cuda.LAUNCHES.items()
                                if v != before[k]}
+            rec["allocated"] = torch.cuda.memory_allocated()  # after the job, on its thread
 
 
 class TimedCapture(graphs.CapturedLoop):
@@ -2195,10 +2280,20 @@ def run_path6(card: str, checked, llava):
     bit for bit (R1's key eager, then captured; R3's segments replayed);
     launches only at checked shapes, as many as the calls predict (R1
     eager, R2 captures, R3-R4 replay); R2's lines are the pipeline's ticks;
-    R3's 16 frames in two appends, the ring empty at the end. Then
+    R3's 16 frames in two appends, the ring empty at the end. The whole path
+    runs with the cyclic collector off; the allocated memory after each job
+    must stay flat once R2's graph is held (fault C8). Then
     ``evaluate_directory`` over two clips with ground truth and LPIPS
     (AlexNet widths, random weights): the card's metrics against the CPU's,
     and a second run that resumes and runs nothing."""
+    gc.disable()  # fault C8: what the requests leave must go by reference counting alone
+    try:
+        return _run_path6(card, checked, llava)
+    finally:
+        gc.enable()
+
+
+def _run_path6(card: str, checked, llava):
     for var in ("http_proxy", "HTTP_PROXY", "https_proxy", "HTTPS_PROXY", "all_proxy",
                 "ALL_PROXY"):
         os.environ.pop(var, None)  # the servers are local: no proxy
@@ -2287,6 +2382,7 @@ def run_path6(card: str, checked, llava):
             reserved = torch.cuda.max_memory_reserved() / 2**30
     finally:
         worker.stop()
+        del worker.submit, worker.submit_stream  # the stamps close over the worker
         for srv in servers:
             srv.shutdown()
             srv.server_close()
@@ -2316,6 +2412,16 @@ def run_path6(card: str, checked, llava):
     if [len(a) for a in r3_appends] != [P6_FRAMES, P6_FRAMES]:
         raise AssertionError(f"R3 wrote {[a.shape for a in r3_appends]}")
     check_launches("path 6 (served R1-R4)", launches, shapes, PATH1_KERNELS, checked)
+    allocated = {name: predictor.records[name]["allocated"] / 2**20
+                 for name in ("r1", "r2", "r3", "r4")}
+    growth = max(allocated["r3"], allocated["r4"]) - allocated["r2"]
+    log(f"path 6 allocated MiB after each job (the cyclic collector off): "
+        f"{json.dumps(allocated)}; R1 -> R2 {allocated['r2'] - allocated['r1']:+.1f} (the "
+        f"captured loop), after R2 at most {growth:+.1f}")
+    if growth > P6_FLAT_MIB:
+        raise AssertionError(f"path 6: allocated memory grew by {growth:.1f} MiB over R3-R4 "
+                             f"(limit {P6_FLAT_MIB}): something the jobs leave waits for the "
+                             f"cyclic collector")
     # R1 runs the loop eagerly, R2 captures it, R3's two segments and R4 replay
     # it (a replay counts no launch); every call decodes in 3 chunks
     predicted = {"r1": {**P6_LOOP, **P6_DECODE}, "r2": {**P6_LOOP, **P6_DECODE},
@@ -2375,6 +2481,7 @@ def run_path6(card: str, checked, llava):
     del predictor, pipe
     torch.cuda.empty_cache()
     return dict(requests=stages, equal=equal, capture_seconds=captures[0][1] - captures[0][0],
+                allocated_mib=allocated,
                 main_thread=dict(eager_s=main_eager["s"], capture_call_s=main_capture["s"],
                                  capture_s=main_capture_s), capture_parts=parts,
                 peak_gib=peak, reserved_gib=reserved, caption=caption,
@@ -2755,6 +2862,102 @@ def run_path7(card: str, checked):
                 launches_by_shape=by_shape, seconds=time.time() - t0)
 
 
+def free_port() -> int:
+    """A TCP port on 127.0.0.1 that nothing listens on now."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def run_path8(card: str, checked):
+    """The multi-GPU package on the card at world size 1: an NCCL group of
+    one rank (``tcp://127.0.0.1``), its parts against the single-device
+    code, and the group destroyed at the end."""
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+                            world_size=1)
+    try:
+        return _run_path8(card, checked)
+    finally:
+        dist.destroy_process_group()
+
+
+def _run_path8(card: str, checked):
+    t0 = time.time()
+    pipe = random_pipeline(device="cuda", seed=0)
+    pipe.step_mode = "host"  # the single-device route of the same calls, step by step
+    sharded = ShardedVideoUpscalePipeline(pipe.m, device="cuda")
+    torch.cuda.synchronize()
+    log(f"path 8: path 1's pipeline and its ShardedVideoUpscalePipeline (NCCL, world size "
+        f"{dist.get_world_size()}) in {time.time() - t0:.1f} s")
+    g = torch.Generator(device="cuda").manual_seed(3)
+    image = torch.rand((1, FRAMES, LR, LR, 3), generator=g, device="cuda") * 2 - 1
+    noise = torch.Generator(device="cuda").manual_seed(8)
+    latents = torch.randn((1, FRAMES, LR, LR, 4), generator=noise, device="cuda")
+    lr_noise = torch.randn((1, FRAMES, LR, LR, 3), generator=noise, device="cuda")
+    call = lambda p: p("a video", image, num_inference_steps=STEPS, guidance_scale=6.0,
+                       noise_level=120, latents=latents, lr_noise=lr_noise,
+                       return_latents=True)
+    call(sharded), call(pipe)  # the first calls fill the lazy state
+    shard, single = timed_call(call, sharded), timed_call(call, pipe)
+    (out, lat), (ref, ref_lat) = shard["out"], single["out"]
+    check_output(out, (1, FRAMES, 4 * LR, 4 * LR, 3))
+    rel = rel_l2(out, ref)
+    log(f"path 8 ShardedVideoUpscalePipeline {FRAMES} frames {LR}x{LR} -> {tuple(out.shape)}, "
+        f"{STEPS} steps: {shard['s']:.2f} s ({FRAMES / shard['s']:.4f} frames/s, peak "
+        f"{shard['peak']:.2f} / {shard['reserved']:.2f} GiB) against the single-device "
+        f"pipeline (host loop) {single['s']:.2f} s ({FRAMES / single['s']:.4f} frames/s, peak "
+        f"{single['peak']:.2f} / {single['reserved']:.2f} GiB) on {card}; frames rel L2 "
+        f"{rel:.3e} (tol {UNET_TOL}), max |diff| {(out - ref).abs().max().item():.4f}, "
+        f"latents rel L2 {rel_l2(lat, ref_lat):.3e}")
+    check_launches("path 8", shard["launches"], shard["shapes"], PATH1_KERNELS, checked)
+    if not rel <= UNET_TOL:
+        raise AssertionError(f"path 8: the sharded pipeline disagrees with the single-device "
+                             f"one: {rel:.3e}")
+    rec = dict(seconds=shard["s"], frames=FRAMES, frames_per_s=FRAMES / shard["s"],
+               single_seconds=single["s"], single_frames_per_s=FRAMES / single["s"],
+               peak_gib=dict(allocated=shard["peak"], reserved=shard["reserved"]),
+               single_peak_gib=dict(allocated=single["peak"], reserved=single["reserved"]),
+               rel_l2=rel, max_abs_diff=(out - ref).abs().max().item(),
+               launches=shard["launches"], launches_by_shape=shard["shapes"])
+
+    # the parts against their serial forms, bit for bit: each rank of one
+    # does the serial per-item work
+    decoded = build_sharded_decode(pipe.m.vae, None, FRAMES)(ref_lat)
+    decode_equal = torch.equal(decoded, pipe.decode_latents(ref_lat))
+    del pipe, sharded, out, ref, lat, ref_lat, shard, single, decoded
+    torch.cuda.empty_cache()
+    raft = load_raft(None, device="cuda")
+    image2 = torch.rand((1, FRAMES2, H2, W2, 3), generator=torch.Generator(
+        device="cuda").manual_seed(3), device="cuda") * 2 - 1
+    flows = build_sharded_flows(raft)
+    timed = {}
+    for name, fn in (("sharded", flows), ("serial", lambda v: compute_bidirectional_flows(raft,
+                                                                                          v))):
+        fn(image2)
+        timed[name] = timed_call(fn, image2)
+    flows_equal = all(torch.equal(a, b) for a, b in zip(timed["sharded"]["out"],
+                                                         timed["serial"]["out"]))
+    ff = timed["serial"]["out"][0]
+    x0 = torch.randn((1, FRAMES2, H2, W2, 4), generator=noise, device="cuda")
+    shift = ff.new_tensor([2.0, 1.0]) + 0.05 * torch.tanh(ff)
+    prop_equal = {}
+    for name, (a, b) in (("raft", timed["serial"]["out"]), ("shift", (shift, -shift))):
+        prop_equal[name] = torch.equal(distributed_propagate_latents(x0, a, b, 1),
+                                       propagate_latents(x0, a, b))
+    equal = dict(decode=decode_equal, flows=flows_equal, **{f"propagation_{k}": v
+                                                            for k, v in prop_equal.items()})
+    log(f"path 8 bit-equal to the serial forms: {json.dumps(equal)}; RAFT flows of path 2's "
+        f"clip: sharded {timed['sharded']['s']:.3f} s, serial {timed['serial']['s']:.3f} s")
+    if not all(equal.values()):
+        raise AssertionError(f"path 8: a sharded part differs from its serial form: {equal}")
+    rec.update(equal=equal, flows_seconds=timed["sharded"]["s"],
+               serial_flows_seconds=timed["serial"]["s"])
+    del raft, timed, flows
+    torch.cuda.empty_cache()
+    return rec
+
+
 class CountingPipeline:
     """A pipeline that counts its calls and keeps their outputs."""
 
@@ -2865,6 +3068,9 @@ def main() -> int:
     phase("kernels")
     only = set(sys.argv[sys.argv.index("--only") + 1].split(",")) if "--only" in sys.argv else None
     recs = check_kernels(only)
+    log("FLOPs the plain versions' products take (FlopCounterMode) against the hand counts of "
+        "bound_ms, where they differ by more than 1 % (shape, hand, counted, gap): "
+        + json.dumps(flop_gaps(recs)))
     phase("kernels: backward through each wrapper")
     backward = check_backward(only)
     if only:
@@ -2876,7 +3082,7 @@ def main() -> int:
 
     wanted = (set(sys.argv[sys.argv.index("--paths") + 1].split(","))
               if "--paths" in sys.argv else set(ALL_PATHS))
-    paths = {}
+    paths, cycles = {}, {}
     if "1" in wanted:
         phase("path 1: model (random weights on the card)")
         t0 = time.time()
@@ -2889,6 +3095,7 @@ def main() -> int:
         paths["path1"] = dict(run_path1(pipe, card, checked), unet=unet1)
         del pipe
         torch.cuda.empty_cache()
+        cycles["path 1"] = collect_cycles("path 1")
 
     if "2" in wanted:
         phase("path 2: model (random weights on the card, video VAE)")
@@ -2902,21 +3109,25 @@ def main() -> int:
         paths["path2"] = dict(run_path2(pipe, card, checked), unet=unet2)
         del pipe
         torch.cuda.empty_cache()
+        cycles["path 2"] = collect_cycles("path 2")
 
     if "3" in wanted:
         phase("path 3: the headline command with -p 24,26,28 (RAFT, propagation, encoder)")
         paths["path3"] = run_path3(card, checked)
         torch.cuda.empty_cache()
+        cycles["path 3"] = collect_cycles("path 3")
 
     if "4" in wanted:
         phase("path 4: the CLI's per-clip step, two 128x192 tiles batched, -p 24,26,28")
         paths["path4"] = run_path4(card, checked)
         torch.cuda.empty_cache()
+        cycles["path 4"] = collect_cycles("path 4")
 
     path5 = llava = None
     if "5" in wanted:
         phase("path 5: the captioner (LLaVA-1.5-13B widths, random weights), int8, MPT")
         llava, path5 = run_path5(card)
+        cycles["path 5"] = collect_cycles("path 5")
 
     if "6" in wanted:
         phase("path 6: serving (web demo, controller, worker, Predictor, the 13B captioner), "
@@ -2927,17 +3138,28 @@ def main() -> int:
         paths["path6"] = run_path6(card, checked, llava)
         del llava
         torch.cuda.empty_cache()
+        cycles["path 6"] = collect_cycles("path 6")
+        if cycles["path 6"]["freed_bytes"] > CYCLE_MIB * 2**20:
+            raise AssertionError(f"path 6 left {cycles['path 6']['freed_bytes'] / 2**20:.1f} "
+                                 f"MiB of device memory in reference cycles (limit {CYCLE_MIB})")
 
     if "7" in wanted:
         phase("path 7: training at released widths (UNet temporal finetune, VAE GAN step, "
               "LoRA caption step)")
-        gc.collect()
         torch.cuda.empty_cache()
         log(f"held on the card before path 7 (its peaks include it): "
             f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
             f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
         paths["path7"] = run_path7(card, checked)
         torch.cuda.empty_cache()
+        cycles["path 7"] = collect_cycles("path 7")
+
+    if "8" in wanted:
+        phase("path 8: the multi-GPU package at world size 1 (NCCL): the sharded pipeline, "
+              "decode, flows and propagation against the single-device forms")
+        paths["path8"] = run_path8(card, checked)
+        torch.cuda.empty_cache()
+        cycles["path 8"] = collect_cycles("path 8")
 
     by_key = {(r["name"], json.dumps(r["shape"])): r for r in recs}
     for name, p in paths.items():  # fault C1 in one run: the kernels against the plain route
@@ -2952,7 +3174,8 @@ def main() -> int:
             f"{plain:.3f} s ({each}); e2e {p['seconds']:.2f} s{route}")
     with open("chiprun_out/chip_smoke_kernels.json", "w") as f:
         json.dump({"card": card, "steps": STEPS, "build_seconds": build_secs, "paths": paths,
-                   "path5": path5, "kernels": recs, "backward": backward}, f, indent=1)
+                   "path5": path5, "cycles": cycles, "kernels": recs, "backward": backward}, f,
+                  indent=1)
     if wanted != set(ALL_PATHS):
         phase(f"done: paths {sorted(wanted)} only (no result line; records in "
               f"chiprun_out/chip_smoke_kernels.json), whole script {time.time() - T0:.1f} s")

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: it imports neither JAX/Flax nor the JAX
 package anywhere, and reads nothing from the reference implementation's
-checkout; ``chip_smoke.py`` likewise. The codec libraries cv2, imageio and
+checkout; ``chip_smoke.py`` and the port's scripts (``scripts/torch_*.py``)
+likewise. The codec libraries cv2, imageio and
 PIL (which the card machine lacks) are imported only inside the functions
 of ``utils/video_io.py`` that use them, never at module level. Importing
 the port needs none of these, and no ``regex`` either: the BPE tokenizer
@@ -23,7 +24,8 @@ CODEC_USER = PORT / "utils" / "video_io.py"  # the one module whose functions ma
 
 
 def _sources():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + sorted((ROOT / "scripts").glob("torch_*.py")))
 
 
 def _imports(tree):
@@ -108,6 +110,18 @@ def test_port_and_chip_smoke_import_with_jax_blocked():
         "import upscale_a_video_tpu_torch.utils.metrics\n"
         "import upscale_a_video_tpu_torch.utils.lpips\n"
         "import upscale_a_video_tpu_torch.pipeline.eval\n"
+        "import upscale_a_video_tpu_torch.utils.profiling\n"
+        "import upscale_a_video_tpu_torch.utils.flops\n"
+        "import upscale_a_video_tpu_torch.utils.textual_inversion\n"
+        "import upscale_a_video_tpu_torch.parallel\n"
+        "import upscale_a_video_tpu_torch.parallel.mesh\n"
+        "import upscale_a_video_tpu_torch.parallel.temporal\n"
+        "import upscale_a_video_tpu_torch.parallel.window_parallel\n"
+        "import upscale_a_video_tpu_torch.parallel.decode\n"
+        "import upscale_a_video_tpu_torch.parallel.flow\n"
+        "import upscale_a_video_tpu_torch.parallel.propagation\n"
+        "import upscale_a_video_tpu_torch.parallel.sharded_pipeline\n"
+        "import upscale_a_video_tpu_torch.parallel.eval_pipeline\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', "
         "'upscale_a_video_tpu') and sys.modules[m] is not None]\n"

@@ -14,8 +14,11 @@ with ``strict=True``. Tolerance: 1e-4 of the output's largest value (float32
 sums in another order; the propagator's recurrent steps 2e-4). The
 propagator's noise is 0.02, not 0.1: each recurrent step multiplies the
 rounding of the step before by the step's gain, and at 0.1 its six steps
-took a 3e-6 difference of the first to 3e-2.
+took a 3e-6 difference of the first to 3e-2. At 0.1 in float64 on both
+sides the two agree to 1e-10 (fault C9: rounding, not a fault of the port).
 """
+
+import types
 
 import jax
 import jax.numpy as jnp
@@ -28,6 +31,8 @@ from upscale_a_video_tpu.nn import attention as ja
 from upscale_a_video_tpu.nn import blocks as jb
 from upscale_a_video_tpu.nn import temporal as jt
 from upscale_a_video_tpu.nn import temporal_transformer as jtt
+from upscale_a_video_tpu.ops import deform_conv as j_deform_module
+from upscale_a_video_tpu.ops import warp as j_warp
 from upscale_a_video_tpu.ops.deform_conv import deform_conv2d as j_deform
 from upscale_a_video_tpu_torch.models.propagation_learnable import LearnablePropagation
 from upscale_a_video_tpu_torch.nn import attention as ta
@@ -199,6 +204,51 @@ def test_learnable_propagation_matches_jax(propagation_case):
     want, tm, (x, ff, fb) = propagation_case
     with torch.no_grad():
         close(want, tm(T(x), T(ff), T(fb)), 2e-4)
+
+
+class _Float64Numpy(types.ModuleType):
+    """``jax.numpy`` with ``float32`` read as ``float64``."""
+
+    def __getattr__(self, name):
+        return jnp.float64 if name == "float32" else getattr(jnp, name)
+
+
+def test_learnable_propagation_float64_at_full_noise(monkeypatch):
+    """Fault C9 (ROADMAP C): the case above at the weight noise of every
+    other case, 0.1, in float64 on both sides: JAX with ``jax_enable_x64``
+    for this test only, the port's module, weights and inputs in float64.
+    JAX's ``flow_warp`` and ``deform_conv2d`` cast their sample positions and
+    sums to float32 (``ops/warp.py:42-43,102-105``, ``ops/deform_conv.py:81-
+    100``), which would leave float32 rounding inside the recurrence, so the
+    test reads ``jnp.float32`` as float64 in those two modules (their files
+    are untouched). The float32 gap at 0.1 is rounding that the recurrence
+    amplifies when float64 closes it: the two then agree to 1e-10 of the
+    output's largest value."""
+    rng = np.random.default_rng(8)
+    x = rand(rng, 1, 4, 8, 8, 4).astype(np.float64)
+    ff = rand(rng, 1, 3, 16, 16, 2, scale=3.0).astype(np.float64)
+    fb = rand(rng, 1, 3, 16, 16, 2, scale=3.0).astype(np.float64)
+    for module in (j_warp, j_deform_module):
+        monkeypatch.setattr(module, "jnp", _Float64Numpy("jnp"))
+    x64 = jax.config.jax_enable_x64
+    jax.config.update("jax_enable_x64", True)
+    try:
+        jm = JProp(in_channels=4, mid_channels=16, num_blocks=1)
+        params = jm.init(jax.random.PRNGKey(0), x, ff, fb)["params"]
+        noise = np.random.default_rng(100)
+        flat = {k: np.asarray(v, np.float64) + noise.standard_normal(np.shape(v)) * 0.1
+                for k, v in flatten_tree(jax.tree.map(np.asarray, params)).items()}
+        want = np.asarray(jm.apply({"params": unflatten(flat)}, x, ff, fb))
+    finally:
+        jax.config.update("jax_enable_x64", x64)
+    assert want.dtype == np.float64
+    tm = LearnablePropagation(4, 16, 1).double()
+    tm.load_state_dict(propagator_state_dict(flat, torch.float64), strict=True)
+    with torch.no_grad():
+        got = tm(*(torch.from_numpy(a) for a in (x, ff, fb)))
+    assert got.dtype == torch.float64
+    err = np.abs(got.numpy() - want).max() / np.abs(want).max()
+    assert err <= 1e-10, err
 
 
 def test_learnable_propagation_nearest_and_shapes(propagation_case):

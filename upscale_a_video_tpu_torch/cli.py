@@ -153,7 +153,10 @@ def upscale_clip(pipeline, raft, frames: np.ndarray, args, caption: str = "",
 
     flows_bi = None
     if raft is not None:
-        flows_bi = compute_bidirectional_flows(raft, video)
+        if hasattr(pipeline, "compute_flows"):  # a sharded pipeline: RAFT over its ranks
+            flows_bi = pipeline.compute_flows(raft, video)
+        else:
+            flows_bi = compute_bidirectional_flows(raft, video)
 
     common = dict(num_inference_steps=args.inference_steps,
                   guidance_scale=args.guidance_scale, noise_level=args.noise_level,

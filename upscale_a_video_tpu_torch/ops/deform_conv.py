@@ -5,7 +5,8 @@
 For each kernel tap k at dilated offset p_k the input is sampled bilinearly
 at ``p + p_k + Δp_k(p)`` (a sample outside the frame adds 0), scaled by the
 modulation mask m_k(p) and contracted with the weight slice of that tap.
-All taps and deformable groups are gathered at once, then one fp32 einsum.
+All taps and deformable groups are gathered at once, then one fp32 einsum
+(float64 for float64 inputs).
 
 Layout: x (B, H, W, C_in); offset (B, H_out, W_out, 2·G·K) in torchvision's
 channel order ([2·(g·K + k)] = Δy, [2·(g·K + k) + 1] = Δx); mask
@@ -17,6 +18,8 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from .warp import compute_dtype
 
 
 def _bilinear_taps(x: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
@@ -57,19 +60,20 @@ def deform_conv2d(x: torch.Tensor, offset: torch.Tensor, weight: torch.Tensor,
     g = offset.shape[-1] // (2 * k)
     if tuple(offset.shape) != (b, ho, wo, 2 * g * k):
         raise ValueError(f"offset {tuple(offset.shape)}, expected {(b, ho, wo, 2 * g * k)}")
-    off = offset.float().reshape(b, ho, wo, g, k, 2)
+    dt = compute_dtype(x, offset)
+    off = offset.to(dt).reshape(b, ho, wo, g, k, 2)
     dev = x.device
     tap_y = (torch.arange(kh, device=dev)[:, None] * dilation).expand(kh, kw).reshape(k)
     tap_x = (torch.arange(kw, device=dev)[None, :] * dilation).expand(kh, kw).reshape(k)
-    base_y = torch.arange(ho, dtype=torch.float32, device=dev) * stride - padding
-    base_x = torch.arange(wo, dtype=torch.float32, device=dev) * stride - padding
+    base_y = torch.arange(ho, dtype=dt, device=dev) * stride - padding
+    base_x = torch.arange(wo, dtype=dt, device=dev) * stride - padding
     ys = base_y[None, :, None, None, None] + tap_y + off[..., 0]
     xs = base_x[None, None, :, None, None] + tap_x + off[..., 1]
-    sampled = _bilinear_taps(x.float().reshape(b, h, w, g, c_in // g), ys, xs)
+    sampled = _bilinear_taps(x.to(dt).reshape(b, h, w, g, c_in // g), ys, xs)
     if mask is not None:
-        sampled = sampled * mask.float().reshape(b, ho, wo, g, k, 1)
-    wt = weight.float().reshape(c_out, g, c_in // g, k)
+        sampled = sampled * mask.to(dt).reshape(b, ho, wo, g, k, 1)
+    wt = weight.to(dt).reshape(c_out, g, c_in // g, k)
     out = torch.einsum("bhwgkc,ogck->bhwo", sampled, wt)
     if bias is not None:
-        out = out + bias.float()
+        out = out + bias.to(dt)
     return out.to(x.dtype)

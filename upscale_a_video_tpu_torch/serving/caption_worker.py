@@ -26,39 +26,44 @@ from ..captioner import CAPTION_QUESTION
 from ..utils import video_io
 
 
-def make_handler(captioner, lock: threading.Lock):
-    """``captioner.caption(frame_u8) -> str`` behind the protocol above."""
-    class Handler(BaseHTTPRequestHandler):
-        def _reply(self, code: int, body: bytes, content_type: str):
-            self.send_response(code)
-            self.send_header("Content-Type", content_type)
-            self.send_header("Content-Length", str(len(body)))
-            self.end_headers()
-            self.wfile.write(body)
+class Handler(BaseHTTPRequestHandler):
+    """The server's ``captioner.caption(frame_u8) -> str`` behind the
+    protocol above, one caption at a time (the server's ``lock``). A class
+    made per server, closing over the captioner, would hold it in the
+    reference cycle every class is part of: its device memory would wait for
+    the cyclic collector."""
 
-        def do_POST(self):  # noqa: N802 (the standard library's name)
-            try:
-                body = self.rfile.read(int(self.headers.get("Content-Length", 0)))
-                frame = video_io.decode_png(body)
-                with lock:
-                    text = captioner.caption(frame)
-                self._reply(200, text.encode(), "text/plain; charset=utf-8")
-            except Exception as e:  # noqa: BLE001  the client gets the error as the reply
-                self._reply(500, f"caption error: {e}".encode(), "text/plain; charset=utf-8")
+    def _reply(self, code: int, body: bytes, content_type: str):
+        self.send_response(code)
+        self.send_header("Content-Type", content_type)
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
 
-        def do_GET(self):  # noqa: N802
-            self._reply(200, b"ok", "text/plain")
+    def do_POST(self):  # noqa: N802 (the standard library's name)
+        try:
+            body = self.rfile.read(int(self.headers.get("Content-Length", 0)))
+            frame = video_io.decode_png(body)
+            with self.server.lock:
+                text = self.server.captioner.caption(frame)
+            self._reply(200, text.encode(), "text/plain; charset=utf-8")
+        except Exception as e:  # noqa: BLE001  the client gets the error as the reply
+            self._reply(500, f"caption error: {e}".encode(), "text/plain; charset=utf-8")
 
-        def log_message(self, *args):
-            pass
+    def do_GET(self):  # noqa: N802
+        self._reply(200, b"ok", "text/plain")
 
-    return Handler
+    def log_message(self, *args):
+        pass
 
 
 def serve(captioner, port: int = 21005, host: str = "0.0.0.0") -> ThreadingHTTPServer:
     """A bound server (``port`` 0 picks a free one); the caller runs
     ``serve_forever``."""
-    return ThreadingHTTPServer((host, port), make_handler(captioner, threading.Lock()))
+    server = ThreadingHTTPServer((host, port), Handler)
+    server.captioner = captioner  # type: ignore[attr-defined]
+    server.lock = threading.Lock()  # type: ignore[attr-defined]
+    return server
 
 
 def main(argv=None):

@@ -83,45 +83,46 @@ class Controller:
             return self.workers[np.random.choice(names, p=speeds / speeds.sum())].url
 
 
-def make_handler(controller: Controller):
-    class Handler(BaseHTTPRequestHandler):
-        def log_message(self, *args):
-            pass
+class Handler(BaseHTTPRequestHandler):
+    """The controller's endpoints; the registry is the server's
+    ``controller`` (a class per server would keep it in a reference cycle)."""
 
-        def _json(self, code: int, payload: dict):
-            body = json.dumps(payload).encode()
-            self.send_response(code)
-            self.send_header("Content-Type", "application/json")
-            self.send_header("Content-Length", str(len(body)))
-            self.end_headers()
-            self.wfile.write(body)
+    def log_message(self, *args):
+        pass
 
-        def do_POST(self):  # noqa: N802 (the standard library's name)
-            n = int(self.headers.get("Content-Length", 0))
-            data = json.loads(self.rfile.read(n) or b"{}")
-            if self.path == "/register_worker":
-                controller.register_worker(data["name"], data["url"],
-                                           float(data.get("speed", 1.0)))
-                self._json(200, {"ok": True})
-            elif self.path == "/heartbeat":
-                ok = controller.heartbeat(data["name"], int(data.get("queue_length", 0)))
-                self._json(200 if ok else 404, {"ok": ok, "exist": ok})
-            elif self.path == "/list_workers":
-                controller.remove_stale_workers()
-                with controller.lock:
-                    listing = {n: {"url": w.url, "queue_length": w.queue_length,
-                                   "speed": w.speed} for n, w in controller.workers.items()}
-                self._json(200, listing)
-            elif self.path == "/get_worker":
-                url = controller.get_worker()
-                if url is None:
-                    self._json(404, {"error": "no workers"})
-                else:
-                    self._json(200, {"url": url})
+    def _json(self, code: int, payload: dict):
+        body = json.dumps(payload).encode()
+        self.send_response(code)
+        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def do_POST(self):  # noqa: N802 (the standard library's name)
+        n = int(self.headers.get("Content-Length", 0))
+        data = json.loads(self.rfile.read(n) or b"{}")
+        controller = self.server.controller
+        if self.path == "/register_worker":
+            controller.register_worker(data["name"], data["url"],
+                                       float(data.get("speed", 1.0)))
+            self._json(200, {"ok": True})
+        elif self.path == "/heartbeat":
+            ok = controller.heartbeat(data["name"], int(data.get("queue_length", 0)))
+            self._json(200 if ok else 404, {"ok": ok, "exist": ok})
+        elif self.path == "/list_workers":
+            controller.remove_stale_workers()
+            with controller.lock:
+                listing = {n: {"url": w.url, "queue_length": w.queue_length,
+                               "speed": w.speed} for n, w in controller.workers.items()}
+            self._json(200, listing)
+        elif self.path == "/get_worker":
+            url = controller.get_worker()
+            if url is None:
+                self._json(404, {"error": "no workers"})
             else:
-                self._json(404, {"error": "unknown endpoint"})
-
-    return Handler
+                self._json(200, {"url": url})
+        else:
+            self._json(404, {"error": "unknown endpoint"})
 
 
 def serve_controller(host: str = "0.0.0.0", port: int = 21001,
@@ -129,7 +130,7 @@ def serve_controller(host: str = "0.0.0.0", port: int = 21001,
     """A bound server (``port`` 0 picks a free port); the caller runs
     ``serve_forever``. ``server.controller`` is its registry."""
     controller = Controller(dispatch_method)
-    server = ThreadingHTTPServer((host, port), make_handler(controller))
+    server = ThreadingHTTPServer((host, port), Handler)
     server.controller = controller  # type: ignore[attr-defined]
     return server
 

@@ -290,93 +290,93 @@ class WebDemo:
             and os.path.isfile(real)
 
 
-def make_handler(demo: WebDemo):
-    class Handler(BaseHTTPRequestHandler):
-        protocol_version = "HTTP/1.1"  # chunked responses need 1.1
+class Handler(BaseHTTPRequestHandler):
+    """The demo's endpoints; the demo is the server's ``demo`` (a class per
+    server would keep it in a reference cycle)."""
 
-        def log_message(self, *args):
+    protocol_version = "HTTP/1.1"  # chunked responses need 1.1
+
+    def log_message(self, *args):
+        pass
+
+    def _stream_upscale(self, data: dict):
+        self.send_response(200)
+        self.send_header("Content-Type", "application/x-ndjson")
+        self.send_header("Transfer-Encoding", "chunked")
+        self.end_headers()
+
+        def emit(ev: dict):
+            payload = json.dumps(ev).encode() + b"\n"
+            try:
+                self.wfile.write(
+                    f"{len(payload):X}\r\n".encode() + payload + b"\r\n")
+                self.wfile.flush()
+            except (BrokenPipeError, ConnectionResetError):
+                pass  # client gone; keep draining the worker stream
+
+        self.server.demo.upscale_stream(data, emit)
+        try:
+            self.wfile.write(b"0\r\n\r\n")
+        except (BrokenPipeError, ConnectionResetError):
             pass
 
-        def _stream_upscale(self, data: dict):
+    def _json(self, code: int, payload: dict):
+        body = json.dumps(payload).encode()
+        self.send_response(code)
+        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def do_GET(self):
+        parsed = urllib.parse.urlparse(self.path)
+        if parsed.path == "/":
+            body = _PAGE.encode()
             self.send_response(200)
-            self.send_header("Content-Type", "application/x-ndjson")
-            self.send_header("Transfer-Encoding", "chunked")
-            self.end_headers()
-
-            def emit(ev: dict):
-                payload = json.dumps(ev).encode() + b"\n"
-                try:
-                    self.wfile.write(
-                        f"{len(payload):X}\r\n".encode() + payload + b"\r\n")
-                    self.wfile.flush()
-                except (BrokenPipeError, ConnectionResetError):
-                    pass  # client gone; keep draining the worker stream
-
-            demo.upscale_stream(data, emit)
-            try:
-                self.wfile.write(b"0\r\n\r\n")
-            except (BrokenPipeError, ConnectionResetError):
-                pass
-
-        def _json(self, code: int, payload: dict):
-            body = json.dumps(payload).encode()
-            self.send_response(code)
-            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Type", "text/html; charset=utf-8")
             self.send_header("Content-Length", str(len(body)))
             self.end_headers()
             self.wfile.write(body)
-
-        def do_GET(self):
-            parsed = urllib.parse.urlparse(self.path)
-            if parsed.path == "/":
-                body = _PAGE.encode()
-                self.send_response(200)
-                self.send_header("Content-Type", "text/html; charset=utf-8")
-                self.send_header("Content-Length", str(len(body)))
-                self.end_headers()
-                self.wfile.write(body)
-            elif parsed.path == "/file":
-                q = urllib.parse.parse_qs(parsed.query)
-                path = (q.get("path") or [""])[0]
-                if not demo.file_ok(path):
-                    self._json(404, {"error": "not found"})
-                    return
-                with open(path, "rb") as f:
-                    data = f.read()
-                self.send_response(200)
-                self.send_header("Content-Type", "video/mp4")
-                self.send_header("Content-Length", str(len(data)))
-                self.end_headers()
-                self.wfile.write(data)
-            elif parsed.path == "/jobs":
-                self._json(200, demo.jobs())
-            else:
-                self._json(404, {"error": "unknown endpoint"})
-
-        def do_POST(self):
-            try:
-                n = int(self.headers.get("Content-Length", 0))
-                data = json.loads(self.rfile.read(n) or b"{}")
-                if not isinstance(data, dict):
-                    raise ValueError("body must be a JSON object")
-            except (ValueError, json.JSONDecodeError) as e:
-                self._json(400, {"error": f"bad request body: {e}"})
+        elif parsed.path == "/file":
+            q = urllib.parse.parse_qs(parsed.query)
+            path = (q.get("path") or [""])[0]
+            if not self.server.demo.file_ok(path):
+                self._json(404, {"error": "not found"})
                 return
-            if self.path == "/list_models":
-                self._json(200, demo.list_models())
-            elif self.path == "/upscale":
-                if data.pop("stream", False):
-                    self._stream_upscale(data)
-                    return
-                result = demo.upscale(data)
-                self._json(200 if "output" in result else 500, result)
-            elif self.path == "/caption":
-                result = demo.caption(data)
-                self._json(200 if "caption" in result else 500, result)
-            else:
-                self._json(404, {"error": "unknown endpoint"})
+            with open(path, "rb") as f:
+                data = f.read()
+            self.send_response(200)
+            self.send_header("Content-Type", "video/mp4")
+            self.send_header("Content-Length", str(len(data)))
+            self.end_headers()
+            self.wfile.write(data)
+        elif parsed.path == "/jobs":
+            self._json(200, self.server.demo.jobs())
+        else:
+            self._json(404, {"error": "unknown endpoint"})
 
-    return Handler
+    def do_POST(self):
+        try:
+            n = int(self.headers.get("Content-Length", 0))
+            data = json.loads(self.rfile.read(n) or b"{}")
+            if not isinstance(data, dict):
+                raise ValueError("body must be a JSON object")
+        except (ValueError, json.JSONDecodeError) as e:
+            self._json(400, {"error": f"bad request body: {e}"})
+            return
+        if self.path == "/list_models":
+            self._json(200, self.server.demo.list_models())
+        elif self.path == "/upscale":
+            if data.pop("stream", False):
+                self._stream_upscale(data)
+                return
+            result = self.server.demo.upscale(data)
+            self._json(200 if "output" in result else 500, result)
+        elif self.path == "/caption":
+            result = self.server.demo.caption(data)
+            self._json(200 if "caption" in result else 500, result)
+        else:
+            self._json(404, {"error": "unknown endpoint"})
 
 
 def serve_web_demo(host: str = "127.0.0.1", port: int = 7860,
@@ -384,7 +384,7 @@ def serve_web_demo(host: str = "127.0.0.1", port: int = 7860,
                    caption_endpoint: Optional[str] = None,
                    work_dir: Optional[str] = None) -> ThreadingHTTPServer:
     demo = WebDemo(controller_url, caption_endpoint, work_dir)
-    server = ThreadingHTTPServer((host, port), make_handler(demo))
+    server = ThreadingHTTPServer((host, port), Handler)
     server.demo = demo  # type: ignore[attr-defined]
     return server
 

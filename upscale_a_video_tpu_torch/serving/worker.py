@@ -42,6 +42,7 @@ class Worker:
         self.predictor = predictor
         self.jobs: "queue.Queue[tuple]" = queue.Queue()
         self._stop = threading.Event()
+        self._threads: list = []
         # progress_cb goes only to a predictor that takes it
         self._supports_progress = "progress_cb" in inspect.signature(predictor.predict).parameters
 
@@ -109,66 +110,75 @@ class Worker:
             self.register()
         except Exception:  # noqa: BLE001  the heartbeat loop registers once the controller is up
             pass
-        threading.Thread(target=self.heartbeat_loop, daemon=True).start()
-        threading.Thread(target=self.job_loop, daemon=True).start()
+        self._threads = [threading.Thread(target=self.heartbeat_loop, daemon=True),
+                         threading.Thread(target=self.job_loop, daemon=True)]
+        for thread in self._threads:
+            thread.start()
 
     def stop(self) -> None:
+        """Stop taking jobs and wait for both threads to end (after the job
+        in hand): each holds the worker, and with it the predictor, while
+        it runs."""
         self._stop.set()
+        for thread in self._threads:
+            thread.join()
 
 
-def make_handler(worker: Worker):
-    class Handler(BaseHTTPRequestHandler):
-        protocol_version = "HTTP/1.1"  # chunked replies need 1.1
+class Handler(BaseHTTPRequestHandler):
+    """The worker's endpoints; the worker is the server's ``worker``. A
+    handler class made per server, closing over the worker, would hold the
+    predictor in the reference cycle every class is part of, so that only
+    the cyclic collector could free its device memory."""
 
-        def log_message(self, *args):
-            pass
+    protocol_version = "HTTP/1.1"  # chunked replies need 1.1
 
-        def _json(self, code, payload):
-            body = json.dumps(payload).encode()
-            self.send_response(code)
-            self.send_header("Content-Type", "application/json")
-            self.send_header("Content-Length", str(len(body)))
-            self.end_headers()
-            self.wfile.write(body)
+    def log_message(self, *args):
+        pass
 
-        def _chunk(self, data: bytes):
-            self.wfile.write(f"{len(data):X}\r\n".encode() + data + b"\r\n")
+    def _json(self, code, payload):
+        body = json.dumps(payload).encode()
+        self.send_response(code)
+        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
 
-        def _stream_predict(self, data: dict):
-            events = worker.submit_stream(data)
-            self.send_response(200)
-            self.send_header("Content-Type", "application/x-ndjson")
-            self.send_header("Transfer-Encoding", "chunked")
-            self.end_headers()
-            while (ev := events.get()) is not None:
-                try:
-                    self._chunk(json.dumps(ev).encode() + b"\n")
-                    self.wfile.flush()
-                except (BrokenPipeError, ConnectionResetError):
-                    return  # the client went away; the job still completes
-            self.wfile.write(b"0\r\n\r\n")
+    def _chunk(self, data: bytes):
+        self.wfile.write(f"{len(data):X}\r\n".encode() + data + b"\r\n")
 
-        def do_POST(self):  # noqa: N802 (the standard library's name)
+    def _stream_predict(self, data: dict):
+        events = self.server.worker.submit_stream(data)
+        self.send_response(200)
+        self.send_header("Content-Type", "application/x-ndjson")
+        self.send_header("Transfer-Encoding", "chunked")
+        self.end_headers()
+        while (ev := events.get()) is not None:
             try:
-                n = int(self.headers.get("Content-Length", 0))
-                data = json.loads(self.rfile.read(n) or b"{}")
-                if not isinstance(data, dict):
-                    raise ValueError("body must be a JSON object")
-            except ValueError as e:  # json.JSONDecodeError is one
-                self._json(400, {"error": f"bad request body: {e}"})
-                return
-            if self.path == "/predict":
-                if data.pop("stream", False):
-                    self._stream_predict(data)
-                    return
-                result = worker.submit(data)
-                self._json(200 if "output" in result else 500, result)
-            elif self.path == "/status":
-                self._json(200, {"queue_length": worker.jobs.qsize()})
-            else:
-                self._json(404, {"error": "unknown endpoint"})
+                self._chunk(json.dumps(ev).encode() + b"\n")
+                self.wfile.flush()
+            except (BrokenPipeError, ConnectionResetError):
+                return  # the client went away; the job still completes
+        self.wfile.write(b"0\r\n\r\n")
 
-    return Handler
+    def do_POST(self):  # noqa: N802 (the standard library's name)
+        try:
+            n = int(self.headers.get("Content-Length", 0))
+            data = json.loads(self.rfile.read(n) or b"{}")
+            if not isinstance(data, dict):
+                raise ValueError("body must be a JSON object")
+        except ValueError as e:  # json.JSONDecodeError is one
+            self._json(400, {"error": f"bad request body: {e}"})
+            return
+        if self.path == "/predict":
+            if data.pop("stream", False):
+                self._stream_predict(data)
+                return
+            result = self.server.worker.submit(data)
+            self._json(200 if "output" in result else 500, result)
+        elif self.path == "/status":
+            self._json(200, {"queue_length": self.server.worker.jobs.qsize()})
+        else:
+            self._json(404, {"error": "unknown endpoint"})
 
 
 def serve_worker(name: str, host: str, port: int, controller_url: str,
@@ -177,10 +187,10 @@ def serve_worker(name: str, host: str, port: int, controller_url: str,
     under the bound port (``port`` 0 picks a free one); the caller runs
     ``serve_forever``. ``server.worker`` is the worker."""
     worker = Worker(name, "", controller_url, predictor)
-    server = ThreadingHTTPServer((host, port), make_handler(worker))
+    server = ThreadingHTTPServer((host, port), Handler)
+    server.worker = worker  # type: ignore[attr-defined]
     worker.url = f"http://{host}:{server.server_address[1]}"
     worker.start()
-    server.worker = worker  # type: ignore[attr-defined]
     return server
 
 

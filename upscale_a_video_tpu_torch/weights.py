@@ -106,10 +106,11 @@ def flatten_tree(tree, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...], ob
 def to_state_dict(flat: Mapping[Tuple[str, ...], np.ndarray],
                   renames: Optional[Mapping[str, str]] = None,
                   dtype: torch.dtype = torch.float32) -> Dict[str, torch.Tensor]:
-    """``{flax path: array}`` → the port's state dict (reference key names)."""
+    """``{flax path: array}`` → the port's state dict (reference key names),
+    in ``dtype`` (a float64 ``dtype`` keeps float64 arrays exact)."""
     out: Dict[str, torch.Tensor] = {}
     for path, value in flat.items():
-        v = np.array(value, dtype=np.float32)
+        v = np.array(value, dtype=np.float64 if dtype == torch.float64 else np.float32)
         perm = _perm(path, v.ndim)
         if perm is not None:
             v = v.transpose(perm)
@@ -161,10 +162,11 @@ PROPAGATOR_RENAMES = {
 }
 
 
-def propagator_state_dict(flat: Mapping[Tuple[str, ...], np.ndarray]) -> Dict[str, torch.Tensor]:
+def propagator_state_dict(flat: Mapping[Tuple[str, ...], np.ndarray],
+                          dtype: torch.dtype = torch.float32) -> Dict[str, torch.Tensor]:
     """A JAX ``LearnablePropagation`` tree → the port's (reference key
     names; the deformable convs' HWIO ``weight`` → OIHW)."""
-    return to_state_dict(flat, PROPAGATOR_RENAMES)
+    return to_state_dict(flat, PROPAGATOR_RENAMES, dtype)
 
 
 def discriminator_state_dict(flat: Mapping[Tuple[str, ...], np.ndarray]) -> Dict[str, torch.Tensor]:
